@@ -1,0 +1,264 @@
+// Fused multi-resolution grid encode for Hopper (sm_90a): forward and
+// table-gradient backward over the master table.
+//
+// Replaces the TPU kernel sparsefusion_tpu/kernels/grid_gather.py::
+// vmem_row_gather (the VMEM row gather behind NGPConfig.pallas_gather,
+// reached from ops/grid_encode_blocked.py) together with its XLA
+// scatter-add adjoint (_gather_bwd).  On the TPU the lookup was recast as
+// one gathered row of a pre-expanded "blocked" table per (point, level),
+// because TPU gathers are row-count bound.  On Hopper the whole master
+// table fits in L2 (NGPConfig(): 929,336 x 2 f32 = 7.4 MB; 8 x C4:
+// 463,672 x 4 = 7.4 MB, of a 50 MB L2), so the kernel reads the 8
+// corners of each (point, level) straight from the master table and no
+// expanded copy is built.
+//
+// What bounds it: the forward is bound by L2 gather transactions, 8 x L
+// per point (one per corner and level); the backward by L2 atomics, the
+// same 8 x L x C per point.  Design: one thread per (point, level), with
+// the level innermost so that the output writes of neighbouring threads
+// coalesce; weights and sums stay in f32 registers; the backward
+// accumulates with f32 atomicAdd (not deterministic from run to run, a
+// segment sum would be) and skips points outside the unit box.
+//
+// Semantics are those of ops/grid_encode.py (the plain version):
+//   pos = x * scale + 0.5; corner = floor(pos) + bit; frac = pos - floor
+//   index = stride-dot (dropped axis: stride 0) or prime-xor hash, uint32
+//   row = index % level_size + level_offset; out zero outside [0,1]^3.
+// The position math avoids FMA contraction (__fmul_rn / __fadd_rn): a
+// fused multiply-add changes floor(pos) at cell edges and would pick a
+// different corner than the CPU does.  For a bf16 table the trilinear
+// weight is rounded to bf16 and the product taken in f32, as the JAX
+// blocked path does.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define SF_MAX_LEVELS 32
+
+struct LevelTable {
+    uint32_t offsets[SF_MAX_LEVELS];
+    uint32_t sizes[SF_MAX_LEVELS];
+    float scales[SF_MAX_LEVELS];
+    uint32_t strides[SF_MAX_LEVELS][3];
+    int use_hash[SF_MAX_LEVELS];
+};
+
+__device__ __forceinline__ float load_f32(const float* t, long long i) {
+    return __ldg(t + i);
+}
+
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* t,
+                                          long long i) {
+    return __bfloat162float(t[i]);
+}
+
+// Corner k of a (point, level): its table row and trilinear weight.
+struct Cell {
+    uint32_t pg[3];
+    float frac[3];
+};
+
+__device__ __forceinline__ void make_cell(const float* __restrict__ x,
+                                          long long n, float scale,
+                                          Cell& cell) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+        float pos = __fadd_rn(__fmul_rn(x[n * 3 + d], scale), 0.5f);
+        float fl = floorf(pos);
+        cell.frac[d] = __fsub_rn(pos, fl);
+        cell.pg[d] = (uint32_t)fl;
+    }
+}
+
+template <bool kBf16Weight>
+__device__ __forceinline__ void corner(const Cell& cell, int k,
+                                       const LevelTable& lt, int l,
+                                       uint32_t& row, float& w) {
+    uint32_t c[3];
+    float wd[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+        uint32_t bit = (k >> d) & 1u;
+        c[d] = cell.pg[d] + bit;
+        wd[d] = bit ? cell.frac[d] : __fsub_rn(1.0f, cell.frac[d]);
+    }
+    w = __fmul_rn(__fmul_rn(wd[0], wd[1]), wd[2]);
+    if (kBf16Weight) w = __bfloat162float(__float2bfloat16_rn(w));
+    uint32_t idx;
+    if (lt.use_hash[l]) {
+        idx = c[0] ^ (c[1] * 2654435761u) ^ (c[2] * 805459861u);
+    } else {
+        idx = c[0] * lt.strides[l][0] + c[1] * lt.strides[l][1]
+            + c[2] * lt.strides[l][2];
+    }
+    row = idx % lt.sizes[l] + lt.offsets[l];
+}
+
+__device__ __forceinline__ bool out_of_box(const float* __restrict__ x,
+                                           long long n) {
+    float a = x[n * 3], b = x[n * 3 + 1], c = x[n * 3 + 2];
+    return a < 0.f || a > 1.f || b < 0.f || b > 1.f || c < 0.f || c > 1.f;
+}
+
+template <int C, typename T>
+__global__ void grid_encode_fwd_kernel(const float* __restrict__ x,
+                                       const T* __restrict__ table,
+                                       float* __restrict__ out,
+                                       long long n_points, int L,
+                                       LevelTable lt) {
+    long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (tid >= n_points * L) return;
+    long long n = tid / L;
+    int l = (int)(tid - n * L);
+    constexpr bool kBf16 = sizeof(T) == 2;
+
+    float acc[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = 0.f;
+
+    if (!out_of_box(x, n)) {
+        Cell cell;
+        make_cell(x, n, lt.scales[l], cell);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+            uint32_t row;
+            float w;
+            corner<kBf16>(cell, k, lt, l, row, w);
+            long long base = (long long)row * C;
+#pragma unroll
+            for (int c = 0; c < C; ++c)
+                acc[c] += w * load_f32(table, base + c);
+        }
+    }
+    float* o = out + tid * C;  // == n * L * C + l * C (level-major)
+#pragma unroll
+    for (int c = 0; c < C; ++c) o[c] = acc[c];
+}
+
+template <int C, bool kBf16>
+__global__ void grid_encode_bwd_kernel(const float* __restrict__ x,
+                                       const float* __restrict__ grad_out,
+                                       float* __restrict__ grad_table,
+                                       long long n_points, int L,
+                                       LevelTable lt) {
+    long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (tid >= n_points * L) return;
+    long long n = tid / L;
+    int l = (int)(tid - n * L);
+    if (out_of_box(x, n)) return;
+
+    float g[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) g[c] = grad_out[tid * C + c];
+
+    Cell cell;
+    make_cell(x, n, lt.scales[l], cell);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        uint32_t row;
+        float w;
+        corner<kBf16>(cell, k, lt, l, row, w);
+        long long base = (long long)row * C;
+#pragma unroll
+        for (int c = 0; c < C; ++c) atomicAdd(grad_table + base + c, w * g[c]);
+    }
+}
+
+static int make_levels(int L, const long long* offsets, const float* scales,
+                       const uint32_t* strides, const int* use_hash,
+                       LevelTable* lt) {
+    if (L < 1 || L > SF_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+    for (int l = 0; l < L; ++l) {
+        lt->offsets[l] = (uint32_t)offsets[l];
+        lt->sizes[l] = (uint32_t)(offsets[l + 1] - offsets[l]);
+        lt->scales[l] = scales[l];
+        for (int d = 0; d < 3; ++d) lt->strides[l][d] = strides[l * 3 + d];
+        lt->use_hash[l] = use_hash[l];
+    }
+    return 0;
+}
+
+static const int kThreads = 256;
+
+template <int C>
+static void launch_fwd(const float* x, const void* table, int bf16,
+                       float* out, long long n, int L, const LevelTable& lt,
+                       cudaStream_t s) {
+    long long total = n * L;
+    unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
+    if (bf16)
+        grid_encode_fwd_kernel<C, __nv_bfloat16><<<blocks, kThreads, 0, s>>>(
+            x, (const __nv_bfloat16*)table, out, n, L, lt);
+    else
+        grid_encode_fwd_kernel<C, float><<<blocks, kThreads, 0, s>>>(
+            x, (const float*)table, out, n, L, lt);
+}
+
+template <int C>
+static void launch_bwd(const float* x, const float* g, int bf16, float* gt,
+                       long long n, int L, const LevelTable& lt,
+                       cudaStream_t s) {
+    long long total = n * L;
+    unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
+    if (bf16)
+        grid_encode_bwd_kernel<C, true><<<blocks, kThreads, 0, s>>>(
+            x, g, gt, n, L, lt);
+    else
+        grid_encode_bwd_kernel<C, false><<<blocks, kThreads, 0, s>>>(
+            x, g, gt, n, L, lt);
+}
+
+// Host pointers: offsets (L+1) int64, scales (L) f32, strides (L, 3)
+// uint32, use_hash (L) int32.  Device pointers: x (N, 3) f32, table
+// (T, C) f32 or bf16, out (N, L*C) f32.  Returns cudaGetLastError().
+extern "C" int sf_grid_encode_fwd(const void* x, const void* table,
+                                  int table_bf16, void* out,
+                                  long long n_points, int L, int C,
+                                  const void* offsets, const void* scales,
+                                  const void* strides, const void* use_hash,
+                                  void* stream) {
+    LevelTable lt;
+    int err = make_levels(L, (const long long*)offsets,
+                          (const float*)scales, (const uint32_t*)strides,
+                          (const int*)use_hash, &lt);
+    if (err) return err;
+    if (n_points == 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    const float* xf = (const float*)x;
+    float* o = (float*)out;
+    switch (C) {
+        case 1: launch_fwd<1>(xf, table, table_bf16, o, n_points, L, lt, s); break;
+        case 2: launch_fwd<2>(xf, table, table_bf16, o, n_points, L, lt, s); break;
+        case 4: launch_fwd<4>(xf, table, table_bf16, o, n_points, L, lt, s); break;
+        case 8: launch_fwd<8>(xf, table, table_bf16, o, n_points, L, lt, s); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
+// grad_out (N, L*C) f32; grad_table (T, C) f32, zeroed by the caller.
+extern "C" int sf_grid_encode_bwd(const void* x, const void* grad_out,
+                                  int table_bf16, void* grad_table,
+                                  long long n_points, int L, int C,
+                                  const void* offsets, const void* scales,
+                                  const void* strides, const void* use_hash,
+                                  void* stream) {
+    LevelTable lt;
+    int err = make_levels(L, (const long long*)offsets,
+                          (const float*)scales, (const uint32_t*)strides,
+                          (const int*)use_hash, &lt);
+    if (err) return err;
+    if (n_points == 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    const float* xf = (const float*)x;
+    const float* g = (const float*)grad_out;
+    float* gt = (float*)grad_table;
+    switch (C) {
+        case 1: launch_bwd<1>(xf, g, table_bf16, gt, n_points, L, lt, s); break;
+        case 2: launch_bwd<2>(xf, g, table_bf16, gt, n_points, L, lt, s); break;
+        case 4: launch_bwd<4>(xf, g, table_bf16, gt, n_points, L, lt, s); break;
+        case 8: launch_bwd<8>(xf, g, table_bf16, gt, n_points, L, lt, s); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}

@@ -1,0 +1,170 @@
+"""Wrappers for the fused grid-encode CUDA kernel (``csrc/grid_encode.cu``).
+
+Hopper form of ``sparsefusion_tpu/kernels/grid_gather.py::vmem_row_gather``
+and its scatter-add adjoint: one kernel computes the whole encoding of
+``ops/grid_encode.py`` from the master table, one computes the table
+gradient with f32 atomics.  The plain version of both is
+``ops/grid_encode.py::grid_encode_plain`` (autograd gives its gradient).
+
+Each wrapper checks its tensors, allocates its output, launches on the
+current stream and counts its launches in ``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from sparsefusion_tpu_torch.ops.grid_encode import GridEncoding
+
+MAX_LEVELS = 32
+_LEVEL_DIMS = (1, 2, 4, 8)
+
+
+def _level_args(enc: GridEncoding):
+    """Host arrays the C entry points read: kept alive by the caller for
+    the duration of the call."""
+    if enc.input_dim != 3:
+        raise ValueError(f"the CUDA grid encode is 3-D; got input_dim="
+                         f"{enc.input_dim}")
+    if not 1 <= enc.num_levels <= MAX_LEVELS:
+        raise ValueError(f"num_levels={enc.num_levels} outside "
+                         f"[1, {MAX_LEVELS}]")
+    if enc.level_dim not in _LEVEL_DIMS:
+        raise ValueError(f"level_dim={enc.level_dim} not in {_LEVEL_DIMS}")
+    if enc.total_params >= 2 ** 32:
+        raise ValueError("table rows must fit uint32")
+    return (np.ascontiguousarray(enc.offsets, np.int64),
+            np.ascontiguousarray(enc.scales, np.float32),
+            np.ascontiguousarray(enc.strides, np.uint32),
+            np.ascontiguousarray(enc.use_hash, np.int32))
+
+
+def _ptr(a: np.ndarray) -> ctypes.c_void_p:
+    return ctypes.c_void_p(a.ctypes.data)
+
+
+def _check_points(x01: torch.Tensor) -> None:
+    if not x01.is_cuda:
+        raise ValueError("grid_encode_cuda takes CUDA tensors")
+    if x01.dtype != torch.float32 or x01.ndim != 2 or x01.shape[1] != 3:
+        raise ValueError(f"x01 must be (N, 3) float32, got "
+                         f"{tuple(x01.shape)} {x01.dtype}")
+    if not x01.is_contiguous():
+        raise ValueError("x01 must be contiguous")
+
+
+def _call(fn, x01, src, bf16, dst, enc):
+    offsets, scales, strides, use_hash = _level_args(enc)
+    stream = torch.cuda.current_stream(x01.device).cuda_stream
+    with torch.cuda.device(x01.device):
+        err = fn(ctypes.c_void_p(x01.data_ptr()),
+                 ctypes.c_void_p(src.data_ptr()), int(bf16),
+                 ctypes.c_void_p(dst.data_ptr()), x01.shape[0],
+                 enc.num_levels, enc.level_dim, _ptr(offsets), _ptr(scales),
+                 _ptr(strides), _ptr(use_hash), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"grid encode kernel launch failed: CUDA error "
+                           f"{err}")
+
+
+def grid_encode_cuda(x01: torch.Tensor, table: torch.Tensor,
+                     enc: GridEncoding) -> torch.Tensor:
+    """Forward kernel: (N, 3) f32 points in [0, 1], (T, C) f32 or bf16
+    table -> (N, L*C) f32 encodings (zero outside the unit box)."""
+    from sparsefusion_tpu_torch.kernels._build import load_library
+
+    _check_points(x01)
+    if table.device != x01.device:
+        raise ValueError("table and points must be on one device")
+    if table.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"table dtype {table.dtype} not f32/bf16")
+    if table.shape != (enc.total_params, enc.level_dim):
+        raise ValueError(f"table shape {tuple(table.shape)} != "
+                         f"{(enc.total_params, enc.level_dim)}")
+    if not table.is_contiguous():
+        raise ValueError("table must be contiguous")
+    out = torch.empty((x01.shape[0], enc.output_dim), dtype=torch.float32,
+                      device=x01.device)
+    _call(load_library().sf_grid_encode_fwd, x01, table,
+          table.dtype == torch.bfloat16, out, enc)
+    grid_encode_cuda.launches += 1
+    return out
+
+
+grid_encode_cuda.launches = 0
+
+
+def grid_encode_cuda_backward(x01: torch.Tensor, grad_out: torch.Tensor,
+                              enc: GridEncoding,
+                              table_bf16: bool = False) -> torch.Tensor:
+    """Backward kernel: the (T, C) f32 table gradient of
+    :func:`grid_encode_cuda` for output gradient ``grad_out`` (N, L*C).
+    ``table_bf16`` rounds the weights as the bf16 forward did."""
+    from sparsefusion_tpu_torch.kernels._build import load_library
+
+    _check_points(x01)
+    if grad_out.shape != (x01.shape[0], enc.output_dim) \
+            or grad_out.dtype != torch.float32 \
+            or grad_out.device != x01.device:
+        raise ValueError(f"grad_out must be (N, {enc.output_dim}) float32 "
+                         f"on the points' device")
+    grad_out = grad_out.contiguous()
+    grad_table = torch.zeros((enc.total_params, enc.level_dim),
+                             dtype=torch.float32, device=x01.device)
+    _call(load_library().sf_grid_encode_bwd, x01, grad_out, table_bf16,
+          grad_table, enc)
+    grid_encode_cuda_backward.launches += 1
+    return grad_table
+
+
+grid_encode_cuda_backward.launches = 0
+
+
+def reset_launches() -> None:
+    grid_encode_cuda.launches = 0
+    grid_encode_cuda_backward.launches = 0
+
+
+class GridEncodeFunction(torch.autograd.Function):
+    """Kernel forward and kernel table-gradient backward.
+
+    Takes the f32 master table; with ``table_dtype="bfloat16"`` it reads
+    a bf16 copy it makes itself, so the gradient it returns stays f32.
+    """
+
+    @staticmethod
+    def forward(ctx, x01, master, enc, table_dtype):
+        table = master if table_dtype is None else \
+            master.to(getattr(torch, table_dtype)).contiguous()
+        ctx.save_for_backward(x01)
+        ctx.enc = enc
+        ctx.bf16 = table.dtype == torch.bfloat16
+        return grid_encode_cuda(x01, table, enc)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (x01,) = ctx.saved_tensors
+        grad_table = None
+        if ctx.needs_input_grad[1]:
+            grad_table = grid_encode_cuda_backward(x01, grad_out, ctx.enc,
+                                                   ctx.bf16)
+        return None, grad_table, None, None
+
+
+def grid_encode_fn(x01: torch.Tensor, master: torch.Tensor,
+                   enc: GridEncoding,
+                   table_dtype: Optional[str] = None) -> torch.Tensor:
+    """Differentiable (in the table) kernel grid encode.  Positions take no
+    gradient: passing points that require one raises."""
+    if x01.requires_grad:
+        raise ValueError("the CUDA grid encode gives no gradient to the "
+                         "positions; detach them (the renderer does)")
+    if master.dtype != torch.float32:
+        raise ValueError("the master table must be float32")
+    if table_dtype not in (None, "bfloat16"):
+        raise ValueError(f"table_dtype {table_dtype!r} not None/bfloat16")
+    return GridEncodeFunction.apply(x01.to(torch.float32).contiguous(),
+                                    master.contiguous(), enc, table_dtype)
