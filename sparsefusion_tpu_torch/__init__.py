@@ -9,14 +9,20 @@ random draw, and ``torch.autograd.Function`` where a hand-written kernel
 needs a gradient.
 
 Layout:
-    core/     cameras (PyTorch3D-convention NDC math), rays, camera paths
-    ops/      image resizes and sampling, the multi-resolution grid encode
-    kernels/  hand-written CUDA kernels (sources in ``csrc/``) + build
-    nn/       the instant-NGP field
-    render/   the NGP volume renderer
-    data/     scene contract, procedural and co3d_toy scenes
-    distill/  per-scene NGP distillation loop
-    cli/      demo front-end (argparse-compatible with the JAX package)
+    core/      cameras (PyTorch3D-convention NDC math), rays, camera
+               paths, harmonic embeddings
+    ops/       image resizes and sampling, the multi-resolution grid
+               encode, shared-kv attention (plain versions of the kernels)
+    kernels/   hand-written CUDA kernels (sources in ``csrc/``) + build
+    nn/        the instant-NGP field, the view-conditioned UNet, the SD
+               VAE, the EFT and its ResNet18 trunk
+    diffusion/ log-SNR schedule, DDPM guidance, the PLMS sampler
+    render/    the NGP volume renderer, the EFT light-field renderer
+    data/      scene contract, procedural and co3d_toy scenes
+    distill/   per-scene distillation loop (EFT cache, bootstrap, fusion)
+    train/     import of reference checkpoints
+    models.py  the EFT / VAE / UNet bundle
+    cli/       demo front-end (argparse-compatible with the JAX package)
 """
 import torch
 

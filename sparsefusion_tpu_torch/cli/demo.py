@@ -6,8 +6,14 @@ surface plus ``--device`` (default ``cuda``):
     python -m sparsefusion_tpu_torch.cli.demo -d synthetic -c any -i 0 \
         -v 2 --no_diffusion
 
-The port runs the NGP-only path (``--no_diffusion``).  The diffusion
-arm, LPIPS, ``-d co3d``, ``--preset tpu`` and ``--scene_batch > 1`` raise
+The diffusion arm runs by default: the EFT / VAE / UNet trio starts from
+random weights drawn from seed 0, or loads the reference checkpoints
+given with ``-e`` / ``-a`` / ``-l`` (and ``--resnet18`` for the EFT trunk
+when no EFT checkpoint is given).  ``--no_diffusion`` runs the NGP-only
+path.  On ``--device cpu`` the UNet and VAE are the narrow test models
+(``models.narrow_model_configs``): the CPU path is for tests and
+rehearsals, and the full-width UNet needs latents of 8 x 8 or more.
+LPIPS, ``-d co3d``, ``--preset tpu`` and ``--scene_batch > 1`` raise
 ``NotImplementedError`` naming their ROADMAP item; ``--no_fused`` and
 ``-g`` / ``-p`` are accepted and change nothing.  With ``--device cuda``
 and no CUDA device the demo raises; it never continues on the CPU.
@@ -45,8 +51,7 @@ def parse_args(argv=None):
     p.add_argument("--lpips_weights", type=str, default=None,
                    help="LPIPS weights (not ported yet)")
     p.add_argument("--resnet18", type=str, default=None,
-                   help="torchvision resnet18 state dict for the EFT trunk "
-                        "(diffusion arm, not ported yet)")
+                   help="torchvision resnet18 state dict for the EFT trunk")
     p.add_argument("--preset", type=str, default="auto",
                    choices=["auto", "reference", "tpu"],
                    help="'reference' = the torch-ngp recipe, DistillConfig(); "
@@ -61,8 +66,8 @@ def parse_args(argv=None):
                    help="torch device the demo runs on (cuda or cpu)")
     args = p.parse_args(argv)
 
-    # reference default parameter block (the diffusion entries come with
-    # the diffusion arm)
+    # reference default parameter block
+    args.timesteps = 500
     args.val_seed = 0
     args.context_views = args.input_views
     args.val_list = [0]
@@ -110,12 +115,42 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def build_trio(args, device: torch.device):
+    """The EFT / VAE / UNet bundle, random from seed 0 or loaded from the
+    given checkpoints."""
+    from sparsefusion_tpu_torch.models import (
+        build_models,
+        narrow_model_configs,
+    )
+    from sparsefusion_tpu_torch.train.checkpoints import (
+        import_resnet18_trunk,
+        maybe_import_reference_weights,
+    )
+
+    configs = {}
+    if device.type == "cpu":
+        if any(p and os.path.exists(p) for p in
+               (args.eft_ckpt, args.vae_ckpt, args.vldm_ckpt)):
+            raise ValueError("reference checkpoints are full width; the "
+                             "CPU demo runs the narrow test UNet and VAE")
+        configs = narrow_model_configs()
+        print("device cpu: narrow test UNet and VAE")
+    generator = torch.Generator(device=device).manual_seed(0)
+    models = build_models(generator, device, timesteps=args.timesteps,
+                          **configs)
+    models = maybe_import_reference_weights(
+        models, args.eft_ckpt, args.vae_ckpt, args.vldm_ckpt)
+    if args.eft_ckpt is None:
+        # the reference EFT starts from an ImageNet trunk
+        models = import_resnet18_trunk(models, args.resnet18)
+    return models
+
+
 def main(argv=None):
     """Run the demo; returns the per-scene results of the loop."""
     args = parse_args(argv)
     from sparsefusion_tpu_torch.cli.check_args import check_args
     from sparsefusion_tpu_torch.distill.loop import (
-        NOT_PORTED_DIFFUSION,
         NOT_PORTED_LPIPS,
         NOT_PORTED_OCCUPANCY,
         DistillConfig,
@@ -124,9 +159,6 @@ def main(argv=None):
 
     check_args(args)
     device = resolve_device(args.device)
-    if not args.no_diffusion:
-        raise NotImplementedError(NOT_PORTED_DIFFUSION
-                                  + "; run with --no_diffusion")
     if args.lpips_weights is not None:
         raise NotImplementedError(NOT_PORTED_LPIPS)
     if args.preset == "tpu":
@@ -140,6 +172,7 @@ def main(argv=None):
     for sub in ("log", "metrics", "render_imgs", "render_gifs"):
         os.makedirs(os.path.join(args.exp_dir, sub), exist_ok=True)
 
+    models = None if args.no_diffusion else build_trio(args, device)
     dataset = load_dataset(args, device)
     cfg = DistillConfig(max_itr=args.max_itr,
                         start_fusion_step=args.start_fusion)
@@ -155,8 +188,8 @@ def main(argv=None):
         generator = torch.Generator(device=device)
         generator.manual_seed(args.val_seed + val_idx)
         results.append(distillation_loop(
-            None, scene, input_idx, cfg, generator, save_dir=args.exp_dir,
-            use_diffusion=False))
+            models, scene, input_idx, cfg, generator, save_dir=args.exp_dir,
+            use_diffusion=not args.no_diffusion))
     return results
 
 

@@ -68,6 +68,40 @@ class Cameras:
                        principal_point.contiguous(), image_size.contiguous())
 
 
+def world_to_view(cameras: Cameras, points: torch.Tensor) -> torch.Tensor:
+    """World points (P, 3) or (N or 1, P, 3) to each camera's view space:
+    x_view = x_world @ R + T.  (N, P, 3)."""
+    if points.ndim == 2:
+        points = points[None]
+    points = points.expand(len(cameras), *points.shape[1:])
+    return torch.einsum("npi,nij->npj", points, cameras.R) \
+        + cameras.T[:, None, :]
+
+
+def _ndc_scale(cameras: Cameras) -> torch.Tensor:
+    """Per-camera (sx, sy) NDC half-span of non-square images: PyTorch3D
+    fixes the shorter side's range to [-1, 1] and scales the longer one
+    by long / short; (1, 1) for square images.  (N, 2)."""
+    h = cameras.image_size[:, 0]
+    w = cameras.image_size[:, 1]
+    short = torch.minimum(h, w)
+    return torch.stack([w / short, h / short], dim=-1)
+
+
+def transform_points_ndc(cameras: Cameras, points: torch.Tensor,
+                         eps: float = 1e-8) -> torch.Tensor:
+    """World points to NDC as PerspectiveCameras.transform_points_ndc:
+    (N, P, 3) of (x_ndc, y_ndc, 1 / z)."""
+    xv = world_to_view(cameras, points)
+    z = xv[..., 2:3]
+    z = torch.where(z.abs() < eps,
+                    torch.where(z >= 0, torch.full_like(z, eps),
+                                torch.full_like(z, -eps)), z)
+    f = cameras.focal_length[:, None, :]
+    c = cameras.principal_point[:, None, :]
+    return torch.cat([f * xv[..., :2] / z + c, 1.0 / z], dim=-1)
+
+
 def view_to_world(cameras: Cameras, points: torch.Tensor) -> torch.Tensor:
     """View-space points (N, P, 3) to world: x_world = (x_view - T) @ R^T."""
     if points.ndim == 2:

@@ -45,24 +45,40 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libsf_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; raise with the first one's stderr
+    that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> pathlib.Path:
-    """Compile the kernels if their library is missing; return its path."""
+    """Compile the kernels if their library is missing; return its path.
+    Each source compiles in its own nvcc, all at once, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    # build under a temporary name, then rename: a concurrent or killed
+    cu = [s for s in _sources() if s.suffix == ".cu"]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    # build under temporary names, then rename: a concurrent or killed
     # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, s.stem + ".o") for s in cu]
+        _run_all([[_nvcc(), *compile_flags, "-c", "-o", o, str(s)]
+                  for s, o in zip(cu, objs)])
+        tmp = os.path.join(tmpdir, out.name)
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-o", tmp, *objs]])
+        os.replace(tmp, out)
     return out
 
 
@@ -76,6 +92,9 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp, i32, vp, i64, i32, i32, vp, vp, vp, vp, vp]
         fn.restype = i32
+    fn = lib.sf_imagen_attention_fwd
+    fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
+    fn.restype = i32
     return lib
 
 

@@ -47,7 +47,8 @@ def test_demo_refuses_cuda_without_a_device(monkeypatch, tmp_path):
     assert not os.path.exists(tmp_path / "out")
 
 
-@pytest.mark.parametrize("extra", [[], ["--no_diffusion", "--preset", "tpu"],
+@pytest.mark.parametrize("extra", [["--lpips_weights", "lpips.npz"],
+                                   ["--no_diffusion", "--preset", "tpu"],
                                    ["--no_diffusion", "--scene_batch", "2"]])
 def test_demo_unported_paths_raise(extra, tmp_path):
     argv = ["-d", "synthetic", "-c", "any", "--device", "cpu",

@@ -1,5 +1,6 @@
-"""The CUDA grid-encode kernels against their plain PyTorch version, on a
-CUDA card.  Without one these tests skip: a CUDA kernel has no CPU mode.
+"""The CUDA kernels (grid encode K1, imagen attention K2) against their
+plain PyTorch versions, on a CUDA card.  Without one these tests skip: a
+CUDA kernel has no CPU mode.
 
 This file imports no jax, so it also runs where JAX is not installed:
 ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py``.
@@ -8,7 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+from sparsefusion_tpu_torch.kernels import attention
 from sparsefusion_tpu_torch.kernels import grid_encode as kernels
+from sparsefusion_tpu_torch.ops.attention import imagen_attention_plain
 from sparsefusion_tpu_torch.ops.grid_encode import (
     grid_encode,
     grid_encode_plain,
@@ -67,3 +70,46 @@ def test_cuda_encode_refuses_position_gradients():
     table = torch.zeros(enc.total_params, enc.level_dim, device="cuda")
     with pytest.raises(ValueError, match="positions"):
         grid_encode(x, table, enc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_keys", [17, 19, 1027])
+def test_imagen_attention_kernel_matches_plain(n_keys):
+    """The UNet's shapes (16 queries, 17 or 19 keys) and the long shape
+    the TPU kernel was written for; f32, online softmax in the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    b, n = (2, 1024) if n_keys == 1027 else (1, 16)
+    rng = np.random.RandomState(n_keys)
+    q = torch.tensor(rng.randn(b, 8, n, 64).astype(np.float32) / 8).cuda()
+    k = torch.tensor(rng.randn(b, n_keys, 64).astype(np.float32)).cuda()
+    v = torch.tensor(rng.randn(b, n_keys, 64).astype(np.float32)).cuda()
+    attention.reset_launches()
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    out = attention.imagen_attention(qa, ka, va)
+    torch.cuda.synchronize()
+    assert attention.imagen_attention_cuda.launches == 1
+    qp, kp, vp = (t.clone().requires_grad_() for t in (q, k, v))
+    want = imagen_attention_plain(qp, kp, vp)
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
+    g = torch.randn_like(out)
+    (out * g).sum().backward()
+    (want * g).sum().backward()
+    for got, ref in ((qa, qp), (ka, kp), (va, vp)):
+        torch.testing.assert_close(got.grad, ref.grad, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_imagen_attention_kernel_refuses_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q = torch.zeros(1, 2, 4, 48, device="cuda")
+    k = torch.zeros(1, 3, 48, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        attention.imagen_attention_cuda(q, k, k)
+    q = torch.zeros(1, 2, 4, 64, device="cuda")
+    k = torch.zeros(1, 3, 64, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        attention.imagen_attention_cuda(q.transpose(1, 2), k, k)
+    with pytest.raises(ValueError, match="float32"):
+        attention.imagen_attention_cuda(q.double(), k.double(), k.double())
