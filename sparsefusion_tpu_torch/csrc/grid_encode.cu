@@ -12,13 +12,29 @@
 // corners of each (point, level) straight from the master table and no
 // expanded copy is built.
 //
-// What bounds it: the forward is bound by L2 gather transactions, 8 x L
-// per point (one per corner and level); the backward by L2 atomics, the
-// same 8 x L x C per point.  Design: one thread per (point, level), with
-// the level innermost so that the output writes of neighbouring threads
-// coalesce; weights and sums stay in f32 registers; the backward
-// accumulates with f32 atomicAdd (not deterministic from run to run, a
-// segment sum would be) and skips points outside the unit box.
+// Forward: bound by L2 gather transactions, 8 x L per point (one per
+// corner and level).  One thread per (point, level), with the level
+// innermost so that the output writes of neighbouring threads coalesce;
+// weights and sums stay in f32 registers.
+//
+// Backward (table gradient): bound by L2 atomics, and above all by their
+// contention.  The renderer hands the points over ray by ray, samples
+// fastest, so neighbouring points sit in the same cells of the coarse
+// levels and their updates land on the same rows, which the L2 can only
+// apply one after another.  Design: a block takes a tile of consecutive
+// points for all levels, level by level, so a warp holds 32 consecutive
+// points (samples of one ray) at one level.  The tile's grad_out rows are
+// staged in shared memory with 16-byte loads.  For each corner, runs of
+// lanes that hit the same row are summed first by a segmented scan over
+// the warp (__shfl_up_sync), and only the last lane of a run issues the
+// run's update, as one vector atomic (float2 / float4, sm_90) per row
+// instead of C scalar ones.  Each warp starts its walk over the levels
+// at another level, so the few hot rows of the coarse levels are not hit
+// by every warp of the grid at the same moment.  What is left is one
+// atomic per distinct row a warp touches, and the contention between
+// warps on the coarse levels' rows; the order of the f32 sums still
+// changes from run to run (a segment sum over sorted rows would be
+// deterministic).  Points outside the unit box add nothing.
 //
 // Semantics are those of ops/grid_encode.py (the plain version):
 //   pos = x * scale + 0.5; corner = floor(pos) + bit; frac = pos - floor
@@ -58,12 +74,11 @@ struct Cell {
     float frac[3];
 };
 
-__device__ __forceinline__ void make_cell(const float* __restrict__ x,
-                                          long long n, float scale,
+__device__ __forceinline__ void make_cell(const float (&p)[3], float scale,
                                           Cell& cell) {
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-        float pos = __fadd_rn(__fmul_rn(x[n * 3 + d], scale), 0.5f);
+        float pos = __fadd_rn(__fmul_rn(p[d], scale), 0.5f);
         float fl = floorf(pos);
         cell.frac[d] = __fsub_rn(pos, fl);
         cell.pg[d] = (uint32_t)fl;
@@ -117,8 +132,9 @@ __global__ void grid_encode_fwd_kernel(const float* __restrict__ x,
     for (int c = 0; c < C; ++c) acc[c] = 0.f;
 
     if (!out_of_box(x, n)) {
+        const float p[3] = {x[n * 3], x[n * 3 + 1], x[n * 3 + 2]};
         Cell cell;
-        make_cell(x, n, lt.scales[l], cell);
+        make_cell(p, lt.scales[l], cell);
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
             uint32_t row;
@@ -135,32 +151,125 @@ __global__ void grid_encode_fwd_kernel(const float* __restrict__ x,
     for (int c = 0; c < C; ++c) o[c] = acc[c];
 }
 
+constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kNoRow = 0xffffffffu;  // a lane with nothing to add
+
+// One row's update: a vector atomic where sm_90 has one.
+template <int C>
+__device__ __forceinline__ void atomic_add_row(float* dst,
+                                               const float (&v)[C]) {
+    if constexpr (C == 1) {
+        atomicAdd(dst, v[0]);
+    } else if constexpr (C == 2) {
+        atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
+    } else {
+#pragma unroll
+        for (int c = 0; c < C; c += 4)
+            atomicAdd(reinterpret_cast<float4*>(dst + c),
+                      make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]));
+    }
+}
+
+// Adds each lane's v to grad_table row `row`, merging runs of adjacent
+// lanes with the same row first: a segmented inclusive scan, then one
+// atomic from the last lane of each run.  All 32 lanes take part.
+template <int C>
+__device__ __forceinline__ void warp_merged_add(float* __restrict__ grad_table,
+                                                uint32_t row, float (&v)[C],
+                                                int lane) {
+    const uint32_t left = __shfl_up_sync(kFull, row, 1);
+    const unsigned heads = __ballot_sync(kFull, lane == 0 || row != left);
+    if (heads != kFull) {
+        // first lane of this lane's run: the highest head at or below it
+        const int start = 31 - __clz(heads & (kFull >> (31 - lane)));
+        for (int off = 1; off < 32; off <<= 1) {
+            const bool take = lane - off >= start;
+            if (!__any_sync(kFull, take)) break;
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+                const float u = __shfl_up_sync(kFull, v[c], off);
+                if (take) v[c] += u;
+            }
+        }
+    }
+    const bool last = lane == 31 || ((heads >> (lane + 1)) & 1u);
+    if (last && row != kNoRow)
+        atomic_add_row<C>(grad_table + (size_t)row * C, v);
+}
+
+// Block: blockDim.x consecutive points, all levels; thread i owns point
+// i of the tile at every level, so a warp holds 32 consecutive points at
+// one level.  Dynamic shared memory: the tile's grad_out rows at a pitch
+// of L*C + 1 floats (odd, so a warp's reads of one level are conflict
+// free).
 template <int C, bool kBf16>
 __global__ void grid_encode_bwd_kernel(const float* __restrict__ x,
                                        const float* __restrict__ grad_out,
                                        float* __restrict__ grad_table,
                                        long long n_points, int L,
                                        LevelTable lt) {
-    long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (tid >= n_points * L) return;
-    long long n = tid / L;
-    int l = (int)(tid - n * L);
-    if (out_of_box(x, n)) return;
+    extern __shared__ float g_tile[];
+    const int lc = L * C;
+    const int pitch = lc + 1;
+    const long long p0 = (long long)blockIdx.x * blockDim.x;
+    const int np = (int)min((long long)blockDim.x, n_points - p0);
 
-    float g[C];
+    // stage grad_out[p0 : p0 + np] (np * lc contiguous floats)
+    const float* src = grad_out + p0 * lc;
+    const int total = np * lc;
+    const bool vec = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+    for (int i = 4 * threadIdx.x; i < total; i += 4 * blockDim.x) {
+        float g4[4];
+        if (vec && i + 4 <= total) {
+            const float4 t = __ldg(reinterpret_cast<const float4*>(src + i));
+            g4[0] = t.x; g4[1] = t.y; g4[2] = t.z; g4[3] = t.w;
+        } else {
 #pragma unroll
-    for (int c = 0; c < C; ++c) g[c] = grad_out[tid * C + c];
+            for (int e = 0; e < 4; ++e)
+                g4[e] = i + e < total ? __ldg(src + i + e) : 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            if (i + e < total) {
+                const int p = (i + e) / lc;
+                g_tile[p * pitch + (i + e - p * lc)] = g4[e];
+            }
+        }
+    }
+    __syncthreads();
 
-    Cell cell;
-    make_cell(x, n, lt.scales[l], cell);
+    const int lane = threadIdx.x & 31;
+    const long long n = p0 + threadIdx.x;
+    const bool live = threadIdx.x < np && !out_of_box(x, n);
+    float p[3] = {0.f, 0.f, 0.f};
+    if (live) {
+        p[0] = x[n * 3];
+        p[1] = x[n * 3 + 1];
+        p[2] = x[n * 3 + 2];
+    }
+    const float* gp = g_tile + threadIdx.x * pitch;
+
+    // each warp starts at another level, so the few hot rows of the
+    // coarse levels are not all hit by every warp at once
+    const int l0 = (int)((blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5))
+                         % L);
+    for (int i = 0; i < L; ++i) {
+        const int l = l0 + i < L ? l0 + i : l0 + i - L;
+        float g[C];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-        uint32_t row;
-        float w;
-        corner<kBf16>(cell, k, lt, l, row, w);
-        long long base = (long long)row * C;
+        for (int c = 0; c < C; ++c) g[c] = live ? gp[l * C + c] : 0.f;
+        Cell cell;
+        make_cell(p, lt.scales[l], cell);
 #pragma unroll
-        for (int c = 0; c < C; ++c) atomicAdd(grad_table + base + c, w * g[c]);
+        for (int k = 0; k < 8; ++k) {
+            uint32_t row;
+            float w;
+            corner<kBf16>(cell, k, lt, l, row, w);
+            float v[C];
+#pragma unroll
+            for (int c = 0; c < C; ++c) v[c] = w * g[c];
+            warp_merged_add<C>(grad_table, live ? row : kNoRow, v, lane);
+        }
     }
 }
 
@@ -198,13 +307,18 @@ template <int C>
 static void launch_bwd(const float* x, const float* g, int bf16, float* gt,
                        long long n, int L, const LevelTable& lt,
                        cudaStream_t s) {
-    long long total = n * L;
-    unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
+    // points per block: 256, halved until the staged grad_out tile fits
+    // the 48 KB of shared memory a block gets without opting in
+    int tile = 256;
+    while (tile > 32 && (size_t)tile * (L * C + 1) * sizeof(float) > 48 * 1024)
+        tile /= 2;
+    const size_t smem = (size_t)tile * (L * C + 1) * sizeof(float);
+    unsigned blocks = (unsigned)((n + tile - 1) / tile);
     if (bf16)
-        grid_encode_bwd_kernel<C, true><<<blocks, kThreads, 0, s>>>(
+        grid_encode_bwd_kernel<C, true><<<blocks, tile, smem, s>>>(
             x, g, gt, n, L, lt);
     else
-        grid_encode_bwd_kernel<C, false><<<blocks, kThreads, 0, s>>>(
+        grid_encode_bwd_kernel<C, false><<<blocks, tile, smem, s>>>(
             x, g, gt, n, L, lt);
 }
 

@@ -46,24 +46,32 @@ def library_path() -> pathlib.Path:
 
 
 def _run_all(cmds):
-    """Run the commands concurrently; raise with the first one's stderr
-    that failed."""
+    """Run the commands concurrently; raise with the stderr of those that
+    failed, else return each one's stderr."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for c in cmds]
-    failed = []
+    failed, errs = [], []
     for cmd, proc in zip(cmds, procs):
         _, err = proc.communicate()
+        errs.append(err)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): "
                           f"{' '.join(cmd)}\n{err}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return errs
+
+
+def _report_path(lib: pathlib.Path) -> pathlib.Path:
+    return lib.with_suffix(".ptxas.txt")
 
 
 def build() -> pathlib.Path:
     """Compile the kernels if their library is missing; return its path.
-    Each source compiles in its own nvcc, all at once, then one link."""
+    Each source compiles in its own nvcc, all at once, then one link.
+    ptxas's report (registers, shared memory and spills of every kernel)
+    is kept beside the library."""
     out = library_path()
     if out.exists():
         return out
@@ -74,12 +82,55 @@ def build() -> pathlib.Path:
     # build never leaves a half-written library under the final name
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         objs = [os.path.join(tmpdir, s.stem + ".o") for s in cu]
-        _run_all([[_nvcc(), *compile_flags, "-c", "-o", o, str(s)]
-                  for s, o in zip(cu, objs)])
+        errs = _run_all([[_nvcc(), *compile_flags, "-Xptxas", "-v", "-c",
+                          "-o", o, str(s)] for s, o in zip(cu, objs)])
+        _report_path(out).write_text("".join(errs))
         tmp = os.path.join(tmpdir, out.name)
         _run_all([[_nvcc(), *NVCC_FLAGS, "-o", tmp, *objs]])
         os.replace(tmp, out)
     return out
+
+
+def resource_report() -> str:
+    """ptxas's lines for the built kernels: per kernel, its registers,
+    shared memory, stack and spill bytes."""
+    report = _report_path(build())
+    if not report.exists():
+        return "(no ptxas report beside this library)"
+    text = report.read_text()
+    return "\n".join(line.strip() for line in text.splitlines()
+                     if "Compiling entry" in line or "Used" in line
+                     or "spill" in line)
+
+
+SASS_OPCODES = ("HMMA", "RED", "ATOM")
+
+
+def sass_counts() -> dict:
+    """Per kernel of the built library, how many SASS instructions start
+    with each of :data:`SASS_OPCODES` (``cuobjdump -sass``): shows that a
+    kernel issues tensor-core instructions (HMMA) or reductions to global
+    memory (RED, ATOM)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(build())],
+        capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            counts[fn] = dict.fromkeys(SASS_OPCODES, 0)
+        elif fn is not None and line.startswith("/*") and "*/" in line:
+            words = line.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):   # predicated
+                words = words[1:]
+            op = words[0] if words else ""
+            for name in SASS_OPCODES:
+                if op.startswith(name):
+                    counts[fn][name] += 1
+    return counts
 
 
 @functools.lru_cache(maxsize=None)

@@ -23,6 +23,7 @@ The master table stays f32 and so does its gradient.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -207,6 +208,56 @@ def grid_encode(x01: torch.Tensor, table: torch.Tensor, enc: GridEncoding,
 
         return grid_encode_fn(x01, table, enc, table_dtype)
     return grid_encode_plain(x01, table, enc, table_dtype)
+
+
+def ray_ordered_points(n_rays: int, n_samples: int,
+                       generator: torch.Generator,
+                       device="cpu") -> torch.Tensor:
+    """(n_rays * n_samples, 3) points in [0, 1]^3 in the order the renderer
+    hands them to the encode: ray by ray, samples fastest
+    (``render/volume.py``, ``(R, S, 3).reshape(-1, 3)``).
+
+    The rays are one camera's pixels in row-major order: from a point 1.5
+    from the box's centre, through a square grid spanning +-0.25 about
+    the centre, so neighbouring rays cross the same coarse cells.  Half of
+    each ray's samples are stratified over its span in the box with the
+    renderer's jitter; the other half are packed about the ray's hit on a
+    sphere of radius 0.4 about the centre (sd 2% of the span), as the
+    importance pass packs them.  Each ray's samples are sorted and clamped
+    to the box, which piles the jittered ends onto its faces as the
+    renderer's clamp does.  Drawn from ``generator`` on ``device``.
+    """
+    def rand(*shape):
+        return torch.rand(shape, generator=generator, device=device)
+
+    def unit(v):
+        return v / v.norm(dim=-1, keepdim=True)
+
+    view = unit(torch.randn(3, generator=generator, device=device))
+    origin = 0.5 + 1.5 * view
+    a = torch.randn(3, generator=generator, device=device)
+    right = unit(a - (a @ view) * view)
+    up = torch.linalg.cross(view, right)
+    side = math.ceil(math.sqrt(n_rays))
+    i = torch.arange(n_rays, device=device)
+    s = ((i % side + 0.5) / side - 0.5)[:, None]
+    r = ((i // side + 0.5) / side - 0.5)[:, None]
+    d = unit(0.5 + 0.5 * (s * right + r * up) - origin)
+    d = torch.where(d.abs() < 1e-6, torch.full_like(d, 1e-6), d)
+    t0, t1 = -origin / d, (1.0 - origin) / d
+    near = torch.minimum(t0, t1).amax(dim=-1, keepdim=True)
+    far = torch.maximum(t0, t1).amin(dim=-1, keepdim=True)
+    span = far - near
+    n_strat = n_samples // 2
+    strat = near + span * torch.linspace(0.0, 1.0, n_strat, device=device) \
+        + (rand(n_rays, n_strat) - 0.5) * span / n_strat
+    b = (d * (origin - 0.5)).sum(-1, keepdim=True)
+    hit = -b - torch.sqrt(b * b - ((origin - 0.5) ** 2).sum() + 0.16)
+    packed = hit + 0.02 * span * torch.randn(
+        n_rays, n_samples - n_strat, generator=generator, device=device)
+    t = torch.sort(torch.cat([strat, packed], dim=-1), dim=-1).values
+    pts = origin + d[:, None, :] * t[..., None]
+    return pts.clamp(0.0, 1.0).reshape(-1, 3)
 
 
 def grid_encode_bound(x: torch.Tensor, table: torch.Tensor,

@@ -29,6 +29,7 @@ from sparsefusion_tpu_torch.ops.grid_encode import (
     grid_encode_bound,
     grid_encode_plain,
     make_grid_encoding,
+    ray_ordered_points,
 )
 
 torch.set_num_threads(2)
@@ -90,6 +91,30 @@ def test_plain_matches_jax_grid_encode(gridtype):
     assert np.all(out_p[oob] == 0)
     np.testing.assert_allclose(out_p, out_j, atol=1e-5)
     np.testing.assert_allclose(grad_p, grad_j, atol=1e-4)
+
+
+@pytest.mark.parametrize("gridtype", ["tiled", "hash"])
+def test_plain_matches_jax_on_ray_ordered_points(gridtype):
+    """Points as the renderer orders them (ray by ray, sorted samples,
+    half packed at a surface, jittered ends clamped onto the box faces):
+    many points share each coarse row, so the table gradient sums long
+    runs.  Tolerance scales with the largest accumulated gradient (f32
+    sums in another order)."""
+    enc = make_grid_encoding(**ENC_KW[gridtype])
+    jenc = jax_make_grid_encoding(**ENC_KW[gridtype])
+    x = ray_ordered_points(64, 32, torch.Generator().manual_seed(4)).numpy()
+    rng = np.random.RandomState(4)
+    table = (rng.randn(enc.total_params, enc.level_dim) * 0.5
+             ).astype(np.float32)
+    g = rng.randn(x.shape[0], enc.output_dim).astype(np.float32)
+    assert ((x == 0) | (x == 1)).any()     # clamped onto the faces
+    out_p, grad_p = _port(x, table, enc, g)
+    out_j, grad_j = _jax(lambda xx, t: jax_grid_encode(xx, t, jenc),
+                         x, table, g)
+    np.testing.assert_allclose(out_p, out_j, atol=1e-5)
+    scale = np.abs(grad_j).max()
+    assert scale > 5      # long runs of points on one row
+    np.testing.assert_allclose(grad_p, grad_j, atol=1e-5 * max(1, scale))
 
 
 def test_plain_matches_jax_blocked_pallas_gather():

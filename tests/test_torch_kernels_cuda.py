@@ -113,3 +113,93 @@ def test_imagen_attention_kernel_refuses_what_it_does_not_take():
         attention.imagen_attention_cuda(q.transpose(1, 2), k, k)
     with pytest.raises(ValueError, match="float32"):
         attention.imagen_attention_cuda(q.double(), k.double(), k.double())
+
+
+# (H, N) pairs with H*N = 5, 16, 128 and 8192 rows of one batch
+ATTN_ROWS = [(1, 5), (8, 2), (8, 16), (8, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("n_keys", [1, 7, 8, 9, 17, 19, 64, 65, 1027])
+@pytest.mark.parametrize("hn", ATTN_ROWS, ids=lambda hn: f"H{hn[0]}N{hn[1]}")
+@pytest.mark.parametrize("b", [1, 2])
+def test_imagen_attention_kernel_ragged_shapes(b, hn, n_keys, d):
+    """Partial m-tiles (rows not a multiple of 16), partial and single
+    k/v tiles (J around the 8-key steps and the 32- or 64-key tiles),
+    both head dims; the 3xTF32 products keep f32 accuracy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    h, n = hn
+    rng = np.random.RandomState(b * 1000 + n_keys + d)
+    q = torch.tensor((rng.randn(b, h, n, d) * d ** -0.5).astype(np.float32))
+    k = torch.tensor(rng.randn(b, n_keys, d).astype(np.float32))
+    v = torch.tensor(rng.randn(b, n_keys, d).astype(np.float32))
+    q, k, v = q.cuda(), k.cuda(), v.cuda()
+    got = attention.imagen_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, imagen_attention_plain(q, k, v),
+                               atol=1e-5, rtol=0)
+
+
+def _ray_points(n_rays, n_samples, seed):
+    from sparsefusion_tpu_torch.ops.grid_encode import ray_ordered_points
+
+    return ray_ordered_points(n_rays, n_samples,
+                              torch.Generator(device="cuda").manual_seed(seed),
+                              "cuda")
+
+
+BWD_CASES = {
+    # the main path's encoding on one launch's points, ray by ray
+    "rays_ngp": (dict(num_levels=16, level_dim=2, base_resolution=16,
+                      log2_hashmap_size=16, desired_resolution=8192,
+                      gridtype="tiled"), None,
+                 lambda: _ray_points(4096, 64, 0)),
+    # every lane of every warp on the same 8 rows per level
+    "identical_points": (CASES["tiled"][0], None,
+                         lambda: torch.full((65536, 3), 0.4321,
+                                            device="cuda")),
+    "rays_bf16_c4": (CASES["tiled_bf16_c4"][0], "bfloat16",
+                     lambda: _ray_points(1024, 64, 1)),
+    "rays_hash": (CASES["hash"][0], None, lambda: _ray_points(1024, 64, 2)),
+    "rays_c1": (dict(CASES["tiled"][0], level_dim=1), None,
+                lambda: _ray_points(256, 64, 3)),
+    "rays_c8": (dict(CASES["tiled"][0], level_dim=8), None,
+                lambda: _ray_points(256, 64, 4)),
+    # a partial last tile: 1000 points is not a multiple of the block
+    "uniform_ragged": (CASES["hash"][0], None,
+                       lambda: torch.rand(1000, 3, device="cuda") * 1.1
+                       - 0.05),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_cuda_table_gradient_on_clustered_points(case):
+    """The warp-merged backward against the plain scatter where many
+    neighbouring points share rows.  Tolerance: f32 sums in another
+    order, so it scales with the largest accumulated gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    kw, table_dtype = BWD_CASES[case][:2]
+    torch.manual_seed(5)
+    x = BWD_CASES[case][2]()
+    enc = make_grid_encoding(**kw)
+    table = torch.randn(enc.total_params, enc.level_dim, device="cuda") * 0.5
+    g = torch.randn(x.shape[0], enc.output_dim, device="cuda")
+
+    got = kernels.grid_encode_cuda_backward(x, g, enc,
+                                            table_dtype == "bfloat16")
+    tp = table.clone().requires_grad_()
+    if case == "identical_points":
+        # the same gradient by linearity, without the drift of the plain
+        # scatter's sequential f32 sum over 65,536 terms
+        x, g = x[:1], g.double().sum(0, keepdim=True).float()
+    (want,) = torch.autograd.grad(grid_encode_plain(x, tp, enc, table_dtype),
+                                  tp, g)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    assert scale > 0
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * max(1.0, scale), (err, scale)
