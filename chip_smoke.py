@@ -7,14 +7,18 @@
 2. Builds the port's CUDA kernels from ``sparsefusion_tpu_torch/csrc``
    (``--csrc DIR``: from another directory of sources with the same C
    entry points) and prints ptxas's registers, shared memory and spills
-   per kernel and their SASS opcode counts; K2 must issue HMMA.
+   per kernel and their SASS opcode counts (HMMA, RED, ATOM, LDG); K2
+   must issue HMMA.
 3. Kernel phase: the fused grid-encode kernel (K1), forward and table
    gradient, against its plain PyTorch version on the same inputs, at
    ``NGPConfig()`` width (16 levels x C2, f32) on 2,097,152 uniform
    points, on one launch of the main path (4096 rays x 64 samples in the
    renderer's order, ``ops/grid_encode.py::ray_ordered_points``), on as
    many uniform points, and on 65,536 copies of one point; at 8 x C4 with
-   a bf16 table, and on a small hash grid.  The imagen attention kernel
+   a bf16 table, and on a small hash grid.  Beside the forward's time on
+   the two chunks: the 32-byte table sectors one launch reads (counted
+   with the plain version's index math), per launch and per warp and
+   level, and the sectors per second achieved.  The imagen attention kernel
    (K2) against its plain version at the UNet's shapes (1, 8, 16, 64)
    with 17 and 19 keys and at (2, 8, 1024, 64) with 1027 keys, beside
    one ``scaled_dot_product_attention`` call as its yardstick (the port
@@ -152,7 +156,36 @@ def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _kernel_case(name, enc, table_dtype, x01, gen, timed):
+SECTOR_BYTES = 32
+
+
+def _table_sectors(x01, enc, table):
+    """The 32-byte sectors of the table that one forward launch reads,
+    counted with the plain version's index math on the points in the box:
+    the distinct sectors of the whole launch, and the sum over every 32
+    consecutive points (one warp of the kernel) and level of the distinct
+    sectors their 8 corners touch."""
+    from sparsefusion_tpu_torch.ops.grid_encode import grid_corner_rows
+
+    row_bytes = enc.level_dim * table.element_size()
+    sectors = grid_corner_rows(x01, enc).long() * row_bytes // SECTOR_BYTES
+    inside = ((x01 >= 0) & (x01 <= 1)).all(-1)
+    sectors = torch.where(inside[:, None, None], sectors,
+                          torch.full_like(sectors, -1))
+    n, levels, corners = sectors.shape
+    distinct = torch.unique(sectors[inside]).numel()
+    pad = -n % 32
+    if pad:
+        sectors = torch.cat([sectors, sectors.new_full(
+            (pad, levels, corners), -1)])
+    per_warp = sectors.view(-1, 32, levels, corners).transpose(1, 2) \
+        .reshape(-1, 32 * corners).sort(dim=-1).values
+    runs = (per_warp[:, 1:] != per_warp[:, :-1]).sum(-1) + 1
+    warp = (runs - (per_warp[:, 0] < 0).long()).sum().item()
+    return distinct, warp
+
+
+def _kernel_case(name, enc, table_dtype, x01, gen, timed, sectors=False):
     from sparsefusion_tpu_torch.kernels.grid_encode import (
         grid_encode_cuda,
         grid_encode_cuda_backward,
@@ -225,6 +258,15 @@ def _kernel_case(name, enc, table_dtype, x01, gen, timed):
         # the (N, L*C) f32 encodings (written) or their gradient (read)
         times["fwd_bound_ms"], _ = _bound(_nbytes(x01, table, out_k))
         times["bwd_bound_ms"], _ = _bound(_nbytes(x01, grad_out, gt_k))
+        if sectors:
+            distinct, warp = _table_sectors(x01, enc, table)
+            sec_s = 1e3 / times["fwd_ms"]
+            times.update({
+                "fwd_table_sectors": distinct,
+                "fwd_table_sectors_per_s": distinct * sec_s,
+                "fwd_warp_sectors": warp,
+                "fwd_warp_sectors_per_s": warp * sec_s,
+                "fwd_warp_sector_bytes_per_s": warp * SECTOR_BYTES * sec_s})
         print(f"kernel {name} device ms per call (torch.profiler, mean of "
               f"{PROFILE_ITERS}; *_event_ms: CUDA events over "
               f"{TIMING_ITERS} back-to-back calls): " + json.dumps(times))
@@ -256,11 +298,12 @@ def kernel_phase():
             num_levels=8, level_dim=2, base_resolution=16,
             log2_hashmap_size=14, gridtype="hash"), None, uniform(1 << 18),
          False),
-        # one launch of the main path: a chunk of rays, samples fastest
+        # one launch of the main path: a chunk of rays, samples fastest;
+        # with the table sectors each launch reads
         ("ngp_16xC2_f32_rays", ngp, None,
-         ray_ordered_points(n_rays, n_samples, gen, "cuda"), True),
+         ray_ordered_points(n_rays, n_samples, gen, "cuda"), "sectors"),
         ("ngp_16xC2_f32_uniform_chunk", ngp, None,
-         uniform(n_rays * n_samples), True),
+         uniform(n_rays * n_samples), "sectors"),
         # worst case: every update of a level lands on the same 8 rows
         ("ngp_16xC2_f32_one_point", ngp, None,
          torch.full((65536, 3), 0.4321, device="cuda"), True),
@@ -268,7 +311,8 @@ def kernel_phase():
     errs = {"fwd": 0.0, "bwd": 0.0}
     times = {}
     for name, enc, td, x01, timed in cases:
-        f, b, t = _kernel_case(name, enc, td, x01, gen, timed)
+        f, b, t = _kernel_case(name, enc, td, x01, gen, bool(timed),
+                               sectors=timed == "sectors")
         errs["fwd"] = max(errs["fwd"], f)
         errs["bwd"] = max(errs["bwd"], b)
         if t is not None:
@@ -731,6 +775,7 @@ def main(argv=None) -> int:
 
     t = times["ngp_16xC2_f32"]
     tr = times["ngp_16xC2_f32_rays"]
+    tu = times["ngp_16xC2_f32_uniform_chunk"]
     # K2 at the UNet's down_3/up_0 shape (19 keys)
     ta = attn_times["q(1,8,16,64)_J19"]
     src = "sparsefusion_tpu_torch/csrc/grid_encode.cu"
@@ -742,7 +787,10 @@ def main(argv=None) -> int:
          "event_ms": t["fwd_event_ms"], "plain_ms": t["fwd_plain_ms"],
          "bound_ms": t["fwd_bound_ms"], "bound_by": "bytes",
          "library_ms": None, "fwd_ms_ray_points": tr["fwd_ms"],
-         "bound_ms_ray_points": tr["fwd_bound_ms"]},
+         "bound_ms_ray_points": tr["fwd_bound_ms"],
+         "warp_sectors_ray_points": tr["fwd_warp_sectors"],
+         "fwd_ms_uniform_chunk": tu["fwd_ms"],
+         "warp_sectors_uniform_chunk": tu["fwd_warp_sectors"]},
         {"name": "grid_encode_bwd", "route": "cuda", "source": src,
          "replaces": "sparsefusion_tpu/kernels/grid_gather.py:133",
          "launches": launches["grid_encode_bwd"],

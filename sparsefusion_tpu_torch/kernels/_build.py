@@ -103,14 +103,14 @@ def resource_report() -> str:
                      or "spill" in line)
 
 
-SASS_OPCODES = ("HMMA", "RED", "ATOM")
+SASS_OPCODES = ("HMMA", "RED", "ATOM", "LDG")
 
 
 def sass_counts() -> dict:
     """Per kernel of the built library, how many SASS instructions start
     with each of :data:`SASS_OPCODES` (``cuobjdump -sass``): shows that a
-    kernel issues tensor-core instructions (HMMA) or reductions to global
-    memory (RED, ATOM)."""
+    kernel issues tensor-core instructions (HMMA), reductions to global
+    memory (RED, ATOM), and how many global loads (LDG) it has."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     sass = subprocess.run(

@@ -8,6 +8,8 @@ gradient with f32 atomics.  The plain version of both is
 
 Each wrapper checks its tensors, allocates its output, launches on the
 current stream and counts its launches in ``<wrapper>.launches``.
+:func:`level_plan` mirrors, in Python, how the kernels reduce each
+level's index to the level's size.
 """
 from __future__ import annotations
 
@@ -42,6 +44,56 @@ def _level_args(enc: GridEncoding):
             np.ascontiguousarray(enc.use_hash, np.int32))
 
 
+IDENTITY, MASK, MODULO = "identity", "mask", "modulo"
+_REDUCTIONS = (IDENTITY, MASK, MODULO)    # the C enum's order
+
+
+def level_plan(enc: GridEncoding) -> list:
+    """Per level, how the kernels reduce a corner's uint32 index to the
+    level's size: the mirror of ``make_levels`` in ``csrc/grid_encode.cu``.
+
+    ``"identity"`` where no corner of a point in the unit box can reach
+    the size (a tiled level's index peaks at the far corner of the cell
+    of x = 1 on every axis, floor(f32(scale + 0.5)) + 1 times the sum of
+    its strides); ``"mask"`` (index & (size - 1)) where the size is a
+    power of two; ``"modulo"`` otherwise.  Each equals index % size on
+    every index the level can produce.
+    """
+    sizes = np.diff(enc.offsets)
+    plan = []
+    for lvl in range(enc.num_levels):
+        size = int(sizes[lvl])
+        max_index = 2 ** 32 - 1
+        if not enc.use_hash[lvl]:
+            pos = np.float32(enc.scales[lvl]) + np.float32(0.5)
+            max_index = (int(np.floor(pos)) + 1) * int(
+                enc.strides[lvl].astype(np.int64).sum())
+        if max_index < size:
+            plan.append(IDENTITY)
+        elif size & (size - 1) == 0:
+            plan.append(MASK)
+        else:
+            plan.append(MODULO)
+    return plan
+
+
+def level_plan_cuda(enc: GridEncoding) -> list:
+    """The plan ``make_levels`` itself chooses, through the built library
+    (host code only; launches nothing)."""
+    from sparsefusion_tpu_torch.kernels._build import load_library
+
+    offsets, scales, strides, use_hash = _level_args(enc)
+    out = np.zeros(enc.num_levels, np.int32)
+    fn = load_library().sf_grid_encode_plan
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    err = fn(enc.num_levels, _ptr(offsets), _ptr(scales), _ptr(strides),
+             _ptr(use_hash), _ptr(out))
+    if err != 0:
+        raise RuntimeError(f"sf_grid_encode_plan failed: CUDA error {err}")
+    return [_REDUCTIONS[r] for r in out]
+
+
 def _ptr(a: np.ndarray) -> ctypes.c_void_p:
     return ctypes.c_void_p(a.ctypes.data)
 
@@ -54,6 +106,23 @@ def _check_points(x01: torch.Tensor) -> None:
                          f"{tuple(x01.shape)} {x01.dtype}")
     if not x01.is_contiguous():
         raise ValueError("x01 must be contiguous")
+
+
+def _check_table(table: torch.Tensor, enc: GridEncoding) -> None:
+    """A (T, C) f32 or bf16 contiguous table whose data is aligned to the
+    kernel's vector row loads: min(C * element size, 16) bytes."""
+    if table.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"table dtype {table.dtype} not f32/bf16")
+    if table.shape != (enc.total_params, enc.level_dim):
+        raise ValueError(f"table shape {tuple(table.shape)} != "
+                         f"{(enc.total_params, enc.level_dim)}")
+    if not table.is_contiguous():
+        raise ValueError("table must be contiguous")
+    align = min(enc.level_dim * table.element_size(), 16)
+    if table.data_ptr() % align:
+        raise ValueError(f"table data must be aligned to {align} bytes for "
+                         f"the kernel's row loads; got address "
+                         f"{table.data_ptr():#x}")
 
 
 def _call(fn, x01, src, bf16, dst, enc):
@@ -79,13 +148,7 @@ def grid_encode_cuda(x01: torch.Tensor, table: torch.Tensor,
     _check_points(x01)
     if table.device != x01.device:
         raise ValueError("table and points must be on one device")
-    if table.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"table dtype {table.dtype} not f32/bf16")
-    if table.shape != (enc.total_params, enc.level_dim):
-        raise ValueError(f"table shape {tuple(table.shape)} != "
-                         f"{(enc.total_params, enc.level_dim)}")
-    if not table.is_contiguous():
-        raise ValueError("table must be contiguous")
+    _check_table(table, enc)
     out = torch.empty((x01.shape[0], enc.output_dim), dtype=torch.float32,
                       device=x01.device)
     _call(load_library().sf_grid_encode_fwd, x01, table,

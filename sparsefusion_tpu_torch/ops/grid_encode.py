@@ -116,24 +116,14 @@ def _round_table(table: torch.Tensor,
     return table + (rounded - table).detach()
 
 
-def grid_encode_plain(x01: torch.Tensor, table: torch.Tensor,
-                      enc: GridEncoding,
-                      table_dtype: Optional[str] = None) -> torch.Tensor:
-    """Plain PyTorch grid encode; autograd gives the table gradient.
-
-    Args:
-        x01: (B, D) points in [0, 1].
-        table: (total_params, C) f32 master table.
-        table_dtype: None (f32) or "bfloat16": the dtype the table is read in.
-
-    Returns:
-        (B, L * C) f32 encodings, zero where inputs leave the unit box.
-    """
-    B, D = x01.shape
-    L, C = enc.num_levels, enc.level_dim
+def _corners(x01: torch.Tensor, enc: GridEncoding):
+    """The cell of every (point, level): the uint32 index of each of its
+    2^D corners before the level's modulo, (B, L, 2^D) in int64 where a
+    uint32 wrap can occur and int32 otherwise, corner k = sum_d bit_d 2^d;
+    and the fractional position in the cell, (B, L, D) f32."""
+    D = enc.input_dim
     dev = x01.device
     x01 = x01.to(torch.float32)
-    tbl = _round_table(table, table_dtype)
 
     def const(a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -148,8 +138,6 @@ def grid_encode_plain(x01: torch.Tensor, table: torch.Tensor,
 
     scales = const(enc.scales, torch.float32)                  # (L,)
     use_hash = const(enc.use_hash, torch.bool)
-    offsets = const(enc.offsets, itype)
-    sizes = (offsets[1:] - offsets[:-1])[:, None]
     bits = (np.arange(2 ** D)[:, None] >> np.arange(D)) & 1    # (K, D)
 
     pos = x01[:, None, :] * scales[None, :, None] + 0.5        # (B, L, D)
@@ -159,14 +147,6 @@ def grid_encode_plain(x01: torch.Tensor, table: torch.Tensor,
     if wide:
         pos_grid = pos_grid & _MASK32
 
-    # corner k = sum_d bit_d 2^d: combine the per-axis terms for bit 0/1
-    # axis by axis, the new axis most significant.  The weight is
-    # (w0 * w1) * w2, the product order of the kernel.
-    w = None
-    for d in range(D):
-        wd = torch.stack([1.0 - frac[..., d], frac[..., d]], dim=-1)
-        w = wd if w is None else (w[..., None, :] * wd[..., :, None]
-                                  ).flatten(-2)                # (B, L, 2^d)
     index = None
     if not enc.use_hash.all():
         # tiled: the stride dot of the base corner plus a constant
@@ -184,7 +164,58 @@ def grid_encode_plain(x01: torch.Tensor, table: torch.Tensor,
             use_hash[:, None], hashed, index)
     if wide:
         index = index & _MASK32
-    index = index % sizes + offsets[:-1, None]                 # (B, L, K)
+    return index, frac
+
+
+def _rows(index: torch.Tensor, enc: GridEncoding) -> torch.Tensor:
+    offsets = torch.as_tensor(enc.offsets, dtype=index.dtype,
+                              device=index.device)
+    sizes = (offsets[1:] - offsets[:-1])[:, None]
+    return index % sizes + offsets[:-1, None]
+
+
+def grid_corner_index(x01: torch.Tensor, enc: GridEncoding) -> torch.Tensor:
+    """(B, L, 2^D) uint32 index of every corner of every (point, level)
+    before it is reduced to the level's size (int64, or int32 where no
+    wrap can occur); corner k = sum_d bit_d 2^d."""
+    return _corners(x01, enc)[0]
+
+
+def grid_corner_rows(x01: torch.Tensor, enc: GridEncoding) -> torch.Tensor:
+    """(B, L, 2^D) table rows the encode reads: the corner index modulo
+    the level's size, plus the level's offset.  Points outside the box
+    get rows too; the encode zeroes them."""
+    return _rows(grid_corner_index(x01, enc), enc)
+
+
+def grid_encode_plain(x01: torch.Tensor, table: torch.Tensor,
+                      enc: GridEncoding,
+                      table_dtype: Optional[str] = None) -> torch.Tensor:
+    """Plain PyTorch grid encode; autograd gives the table gradient.
+
+    Args:
+        x01: (B, D) points in [0, 1].
+        table: (total_params, C) f32 master table.
+        table_dtype: None (f32) or "bfloat16": the dtype the table is read in.
+
+    Returns:
+        (B, L * C) f32 encodings, zero where inputs leave the unit box.
+    """
+    B, D = x01.shape
+    L, C = enc.num_levels, enc.level_dim
+    x01 = x01.to(torch.float32)
+    tbl = _round_table(table, table_dtype)
+    index, frac = _corners(x01, enc)
+    index = _rows(index, enc)                                  # (B, L, K)
+
+    # corner k = sum_d bit_d 2^d: combine the per-axis terms for bit 0/1
+    # axis by axis, the new axis most significant.  The weight is
+    # (w0 * w1) * w2, the product order of the kernel.
+    w = None
+    for d in range(D):
+        wd = torch.stack([1.0 - frac[..., d], frac[..., d]], dim=-1)
+        w = wd if w is None else (w[..., None, :] * wd[..., :, None]
+                                  ).flatten(-2)                # (B, L, 2^d)
     if table_dtype is not None:
         w = w.to(getattr(torch, table_dtype)).to(torch.float32)
 

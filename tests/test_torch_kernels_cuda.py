@@ -203,3 +203,150 @@ def test_cuda_table_gradient_on_clustered_points(case):
     assert scale > 0
     err = (got - want).abs().max().item()
     assert err <= 1e-5 * max(1.0, scale), (err, scale)
+
+
+# a small tiled grid: levels 0-1 take the identity, 2-3 wrap (mask)
+FWD_ENC = dict(num_levels=4, base_resolution=4, log2_hashmap_size=9,
+               per_level_scale=1.9, gridtype="tiled")
+
+
+def _forward_check(x, enc, table_dtype, seed):
+    """The forward kernel against the plain version on the same table;
+    both read bf16 values and round the weights alike, so f32 sums in
+    another order are the only difference."""
+    rng = np.random.RandomState(seed)
+    table = torch.tensor((rng.randn(enc.total_params, enc.level_dim) * 0.5
+                          ).astype(np.float32), device="cuda")
+    tk = table if table_dtype is None else table.to(torch.bfloat16)
+    kernels.reset_launches()
+    got = kernels.grid_encode_cuda(x, tk, enc)
+    torch.cuda.synchronize()
+    assert kernels.grid_encode_cuda.launches == 1
+    assert got.shape == (x.shape[0], enc.output_dim) and got.is_contiguous()
+    want = grid_encode_plain(x, table, enc, table_dtype)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("level_dim", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [1, 255, 257, 4097])
+def test_cuda_forward_ragged_tiles(n, level_dim, table_dtype):
+    """Blocks of 256 points with a partial last one (or a lone point);
+    every row width in f32 and bf16 (one vector load per row)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    enc = make_grid_encoding(level_dim=level_dim, **FWD_ENC)
+    rng = np.random.RandomState(n * 10 + level_dim)
+    x = torch.tensor((rng.rand(n, 3) * 1.1 - 0.05).astype(np.float32),
+                     device="cuda")
+    if n == 1:
+        x[0] = 0.3
+    _forward_check(x, enc, table_dtype, n + level_dim)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("level_dim", [1, 2])
+@pytest.mark.parametrize("num_levels", [1, 3, 5])
+def test_cuda_forward_rows_off_16_bytes(num_levels, level_dim, table_dtype):
+    """L * C not a multiple of 4: the rows of the output are not 16-byte
+    aligned, so the kernel stores scalars; a last chunk of fewer levels
+    than the 8 / C a chunk holds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    enc = make_grid_encoding(level_dim=level_dim,
+                             **dict(FWD_ENC, num_levels=num_levels))
+    rng = np.random.RandomState(num_levels * 10 + level_dim)
+    x = torch.tensor((rng.rand(777, 3) * 1.1 - 0.05).astype(np.float32),
+                     device="cuda")
+    _forward_check(x, enc, table_dtype, num_levels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("gridtype", ["tiled", "hash"])
+def test_cuda_forward_ray_ordered_and_outside_the_box(gridtype, table_dtype):
+    """The renderer's order (a warp on 32 samples of one ray), with every
+    seventh point moved out of the box: those encode to zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    if gridtype == "tiled":     # NGPConfig()'s grid, levels 3-15 wrap
+        enc = make_grid_encoding(num_levels=16, level_dim=2,
+                                 base_resolution=16, log2_hashmap_size=16,
+                                 desired_resolution=8192, gridtype="tiled")
+    else:
+        enc = make_grid_encoding(num_levels=8, level_dim=2,
+                                 base_resolution=16, log2_hashmap_size=14,
+                                 gridtype="hash")
+    x = _ray_points(512, 64, 6)
+    x[::7] = x[::7] * 1.3 - 0.15
+    outside = ((x < 0) | (x > 1)).any(-1)
+    assert outside.any() and not outside.all()
+    got = _forward_check(x, enc, table_dtype, 6)
+    assert (got[outside] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", [None, "bfloat16"])
+def test_cuda_32_levels_of_8(table_dtype):
+    """L * C = 256: the backward's staged grad_out tile no longer fits 256
+    points in 48 KB of shared memory, so it halves it (to 32 points); the
+    forward writes each point's row in 32 chunks of one level."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    enc = make_grid_encoding(num_levels=32, level_dim=8, base_resolution=4,
+                             log2_hashmap_size=12, per_level_scale=1.2,
+                             gridtype="hash")
+    rng = np.random.RandomState(8)
+    x = torch.tensor((rng.rand(1000, 3) * 1.1 - 0.05).astype(np.float32),
+                     device="cuda")
+    _forward_check(x, enc, table_dtype, 8)
+    g = torch.tensor(rng.randn(1000, enc.output_dim).astype(np.float32),
+                     device="cuda")
+    got = kernels.grid_encode_cuda_backward(x, g, enc,
+                                            table_dtype == "bfloat16")
+    tp = torch.zeros(enc.total_params, 8, device="cuda", requires_grad=True)
+    (want,) = torch.autograd.grad(grid_encode_plain(x, tp, enc, table_dtype),
+                                  tp, g)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-5 * max(1.0, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level_dim,dtype", [
+    (2, torch.float32), (4, torch.float32), (8, torch.float32),
+    (4, torch.bfloat16), (8, torch.bfloat16)])
+def test_cuda_forward_refuses_a_misaligned_table(level_dim, dtype):
+    """A contiguous view one element into a buffer: the rows' vector loads
+    would fault, so the wrapper raises before the launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    enc = make_grid_encoding(level_dim=level_dim, **FWD_ENC)
+    n = enc.total_params * level_dim
+    flat = torch.zeros(n + 8, dtype=dtype, device="cuda")
+    table = flat[1:1 + n].view(enc.total_params, level_dim)
+    assert table.is_contiguous()
+    x = torch.rand(64, 3, device="cuda")
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.grid_encode_cuda(x, table, enc)
+    assert kernels.grid_encode_cuda.launches == 0
+    kernels.grid_encode_cuda(x, flat[:n].view(enc.total_params, level_dim),
+                             enc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log2", [9, 12, 16, 19])
+@pytest.mark.parametrize("gridtype", ["tiled", "hash"])
+def test_cuda_level_plan_matches_its_mirror(gridtype, log2):
+    """make_levels' choice of reduction, read back from the built
+    library, against kernels/grid_encode.py::level_plan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the library builds with nvcc")
+    enc = make_grid_encoding(num_levels=16, level_dim=2, base_resolution=16,
+                             log2_hashmap_size=log2, gridtype=gridtype,
+                             desired_resolution=8192)
+    assert kernels.level_plan_cuda(enc) == kernels.level_plan(enc)
