@@ -20,9 +20,11 @@
    with the plain version's index math), per launch and per warp and
    level, and the sectors per second achieved.  The imagen attention kernel
    (K2) against its plain version at the UNet's shapes (1, 8, 16, 64)
-   with 17 and 19 keys and at (2, 8, 1024, 64) with 1027 keys, beside
-   one ``scaled_dot_product_attention`` call as its yardstick (the port
-   never calls it).  Times are device times by ``torch.profiler``, with
+   with 17 and 19 keys, at the train step's (12, 8, 16, 64) with 17 and
+   19 keys and at (2, 8, 1024, 64) with 1027 keys, beside one
+   ``scaled_dot_product_attention`` call as its yardstick (the port never
+   calls it) and the plain backward's time; head dims 8 and 16 at ragged
+   shapes.  Times are device times by ``torch.profiler``, with
    CUDA-event times beside them; each kernel's bound is computed from the
    bytes and operations of its inputs.  Then the NGP-only demo's input
    step at full width under ``torch.profiler``: device time per step by
@@ -38,7 +40,23 @@
    iteration 20).  Each demo runs with the kernels' launch counts reset
    just before and read just after; K2 must launch three times per UNet
    evaluation.
-7. Prints the kernels' JSON line, then ``{"ok": true, "device": ...}``
+7. Training.  One train step of the tiny models (``--preset tiny``: K2
+   at head dim 8) on the card against the CPU from the same weights,
+   batch and draws: loss, every gradient, the parameters after the
+   guarded Adam step; then a NaN batch, which must leave the parameters
+   bit-identical and count one skipped update.  Then the full-width
+   training main path through ``sparsefusion_tpu_torch.cli.train.main``
+   (256 px, diffusion batch 12, 2-5 context views): 20 steps with a
+   checkpoint at 10 and at the end, then ``--resume`` for 2 more; steps/s
+   over steps 2-20 (host clock, each step ends in a loss read), peak
+   memory, K2 launches == 3 x UNet forwards in each run.  Then 3 train
+   steps under ``torch.profiler``: device ms per step by kernel class
+   (convolutions, matmuls, K2) and by range (EFT, VAE encode, UNet loss,
+   backward, K2's plain backward, guard, Adam), beside the step's f32
+   bound (operations counted by ``sparsefusion_tpu_torch.tools.flops``).
+   Then one full-width visualization grid (64-step ancestral sample),
+   called directly.
+8. Prints the kernels' JSON line, then ``{"ok": true, "device": ...}``
    as the last line.
 
 TF32 stays off throughout (the package turns it off at import).
@@ -64,6 +82,7 @@ RAY_CHUNK = (4096, 64)          # rays x samples of one launch on the main path
 TIMING_ITERS = 10
 PROFILE_ITERS = 10
 PROFILE_STEPS = 5
+PROFILE_TRAIN_STEPS = 3
 # NVIDIA H100 SXM data sheet: memory rate and the f32 peak outside the
 # tensor cores (TF32 on the tensor cores: 495e12)
 HBM_BYTES_PER_S = 3.35e12
@@ -449,7 +468,13 @@ def input_step_profile():
 
 
 ATTN_SHAPES = [(1, 8, 16, 64, 17), (1, 8, 16, 64, 19),
+               (12, 8, 16, 64, 17), (12, 8, 16, 64, 19),
                (2, 8, 1024, 64, 1027)]
+# head dims 8 and 16 (the tiny UNet's 8): ragged rows and keys around the
+# 128-key tiles
+ATTN_SMALL_D_SHAPES = [(1, 1, 5, 8, 1), (12, 2, 16, 8, 17),
+                       (3, 4, 37, 8, 257), (12, 2, 16, 16, 129),
+                       (2, 2, 2048, 16, 1027)]
 ATTN_TOL = 1e-5
 
 
@@ -497,7 +522,10 @@ def attention_phase():
     shape, the kernel's device time, its event time, the plain version's
     and the library's device times, and the bound."""
     from sparsefusion_tpu_torch.kernels.attention import imagen_attention_cuda
-    from sparsefusion_tpu_torch.ops.attention import imagen_attention_plain
+    from sparsefusion_tpu_torch.ops.attention import (
+        imagen_attention_backward_plain,
+        imagen_attention_plain,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     err_max, times = 0.0, {}
@@ -505,6 +533,7 @@ def attention_phase():
         q = torch.randn(b, h, n, d, device="cuda", generator=gen) * d ** -0.5
         k = torch.randn(b, j, d, device="cuda", generator=gen)
         v = torch.randn(b, j, d, device="cuda", generator=gen)
+        g = torch.randn(b, h, n, d, device="cuda", generator=gen)
         out_k = imagen_attention_cuda(q, k, v)
         torch.cuda.synchronize()
         out_p = imagen_attention_plain(q, k, v)
@@ -522,6 +551,10 @@ def attention_phase():
                 lambda: imagen_attention_plain(q, k, v)).values()),
             "plain_event_ms": _time_ms(
                 lambda: imagen_attention_plain(q, k, v)),
+            # the autograd backward of the kernel's Function: plain math
+            "plain_backward_ms": sum(_device_ms(
+                lambda: imagen_attention_backward_plain(q, k, v, g))
+                .values()),
             "library_ms": lib_ms, "library_variant": variant,
             "library_backend": backend, "library_max_abs_err": lib_err,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -532,9 +565,22 @@ def attention_phase():
         assert torch.isfinite(out_k).all()
         assert err <= ATTN_TOL, f"K2 disagrees at {name}"
         err_max = max(err_max, err)
+    for b, h, n, d, j in ATTN_SMALL_D_SHAPES:
+        q = torch.randn(b, h, n, d, device="cuda", generator=gen) * d ** -0.5
+        k = torch.randn(b, j, d, device="cuda", generator=gen)
+        v = torch.randn(b, j, d, device="cuda", generator=gen)
+        out_k = imagen_attention_cuda(q, k, v)
+        torch.cuda.synchronize()
+        err = (out_k - imagen_attention_plain(q, k, v)).abs().max().item()
+        print(f"kernel imagen_attention q{(b, h, n, d)}_J{j}: max_abs_err "
+              f"{err:.3e} (tol {ATTN_TOL:.0e})")
+        assert torch.isfinite(out_k).all()
+        assert err <= ATTN_TOL, f"K2 disagrees at D = {d}"
+        err_max = max(err_max, err)
     try:
-        imagen_attention_cuda(q[..., :48].contiguous(), k[..., :48]
-                              .contiguous(), v[..., :48].contiguous())
+        q = torch.zeros(1, 2, 4, 48, device="cuda")
+        k = torch.zeros(1, 3, 48, device="cuda")
+        imagen_attention_cuda(q, k, k)
     except ValueError:
         pass
     else:
@@ -734,6 +780,337 @@ def main_path():
                       "wall_s": wall, "psnr": psnr}
 
 
+TRAIN_TINY = ["-c", "any", "-d", "synthetic", "--preset", "tiny",
+              "--image_size", "64", "--context_size", "2",
+              "--diffusion_batch_size", "2"]
+
+
+def _train_batch_and_draws(cfg, device):
+    """A 64 px synthetic scene's batch (query 0, context 1-2) and fixed
+    draws."""
+    from sparsefusion_tpu_torch.data.synthetic import make_synthetic_scene
+    from sparsefusion_tpu_torch.train.trainer import prepare_scene_batch
+
+    scene = make_synthetic_scene(n_views=4, image_size=64, seed=0)
+    rng = np.random.RandomState(0)
+    hw, dbs = cfg.latent_size, cfg.diffusion_batch_size
+    draws = [{"times": torch.tensor(rng.uniform(0, 0.999, dbs),
+                                    dtype=torch.float32, device=device),
+              "noise": torch.tensor(rng.randn(dbs, 4, hw, hw),
+                                    dtype=torch.float32, device=device),
+              "keep": torch.tensor(rng.rand(dbs) < 0.9, device=device)}]
+    return prepare_scene_batch([scene], [0], [[1, 2]], device), draws
+
+
+def small_train_step_check():
+    """One train step of the tiny models (``--preset tiny``: UNet heads of
+    8, K2 at D = 8; full-width EFT; 64 px, diffusion batch 2) on the card
+    and on the CPU from the same weights, batch and draws: the losses,
+    every gradient and the parameters after the guarded Adam step.  Then
+    a NaN batch on the card: parameters bit-identical, one skipped
+    update."""
+    import copy
+
+    from sparsefusion_tpu_torch.cli.train import build_trio, parse_args
+    from sparsefusion_tpu_torch.kernels import attention
+    from sparsefusion_tpu_torch.train.trainer import (
+        TrainConfig,
+        make_optimizers,
+        make_train_step,
+    )
+
+    models_cpu = build_trio(parse_args(TRAIN_TINY), torch.device("cpu"))
+    with torch.no_grad():   # a zero final conv would hide the UNet
+        models_cpu.unet.final_conv.weight.normal_(
+            0.0, 0.1, generator=torch.Generator().manual_seed(1))
+    cfg = TrainConfig(latent_size=8, context_size=2, diffusion_batch_size=2)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        models = copy.deepcopy(models_cpu)
+        for m in (models.eft, models.vae, models.unet):
+            m.to(dev)
+        unet_opt, eft_opt = make_optimizers(cfg, models)
+        step = make_train_step(models, cfg, unet_opt, eft_opt)
+        batch, draws = _train_batch_and_draws(cfg, dev)
+        attention.reset_launches()
+        before = {f"{name}.{n}": p.detach().cpu().clone()
+                  for name, m in (("unet", models.unet), ("eft", models.eft))
+                  for n, p in m.named_parameters()}
+        losses = [float(x) for x in step(batch, draws=draws)]
+        params = {f"{name}.{n}": p for name, m in (("unet", models.unet),
+                                                  ("eft", models.eft))
+                  for n, p in m.named_parameters()}
+        out[dev] = {"losses": losses, "before": before,
+                    "grads": {k: p.grad.cpu() for k, p in params.items()},
+                    "after": {k: p.detach().cpu() for k, p in params.items()},
+                    "k2": attention.imagen_attention_cuda.launches}
+        if dev == "cuda":
+            bad = dict(batch, query_rgb=batch["query_rgb"].clone())
+            bad["query_rgb"][..., 0] = float("nan")
+            kept = {k: p.detach().clone() for k, p in params.items()}
+            loss = float(step(bad, draws=draws)[0])
+            assert not math.isfinite(loss)
+            assert unet_opt.notfinite == eft_opt.notfinite == 1
+            assert all(torch.equal(p, kept[k]) for k, p in params.items()), \
+                "a NaN batch moved the parameters"
+            print("train step on a NaN batch: no parameter moved, guard "
+                  "counts 1 / 1")
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert cpu["k2"] == 0 and gpu["k2"] == 3, (cpu["k2"], gpu["k2"])
+    print(f"tiny train step cpu vs cuda: losses {cpu['losses']} vs "
+          f"{gpu['losses']}")
+    for a, b in zip(cpu["losses"], gpu["losses"]):
+        assert abs(a - b) <= 1e-5 * abs(a), (a, b)
+    # f32 on both sides; the card's sums run in another order (cuDNN,
+    # K2's 3xTF32).  A gradient that is zero but for rounding (a key bias
+    # under a softmax) is held against 1e-4 of its model's gradient norm.
+    worst = {}
+    for model in ("unet", "eft"):
+        names = [n for n in cpu["grads"] if n.startswith(model + ".")]
+        g_norm = math.sqrt(sum(cpu["grads"][n].norm().item() ** 2
+                               for n in names))
+        worst[f"{model}_grad"] = 0.0
+        for name in names:
+            gc = cpu["grads"][name]
+            err = (gc - gpu["grads"][name]).norm().item()
+            rel = err / max(gc.norm().item(), 1e-4 * g_norm)
+            worst[f"{model}_grad"] = max(worst[f"{model}_grad"], rel)
+            assert rel <= 1e-3, f"gradient of {name} disagrees: {rel:.3e}"
+        # the Adam step from those gradients, over the whole model.  A
+        # first step moves an element by lr * g / (|g| + eps): about lr *
+        # sign(g) where |g| >= 10 eps, which a gradient's rounding cannot
+        # change; below that (gradients zero but for rounding) only the
+        # bound |update| <= lr holds on each side.
+        g_c = torch.cat([cpu["grads"][n].ravel() for n in names])
+        up_c = torch.cat([(cpu["after"][n] - cpu["before"][n]).ravel()
+                          for n in names])
+        up_g = torch.cat([(gpu["after"][n] - gpu["before"][n]).ravel()
+                          for n in names])
+        big = g_c.abs() >= 1e-7
+        rel = ((up_c - up_g)[big].norm() / up_c[big].norm()).item()
+        worst[f"{model}_update"] = rel
+        worst[f"{model}_elements_below_1e-7"] = int((~big).sum())
+        assert rel <= 1e-3, f"{model}: Adam updates disagree: {rel:.3e}"
+        assert (up_c - up_g).abs().max().item() <= 2 * cfg.lr * (1 + 1e-3)
+    print("tiny train step cpu vs cuda: worst relative (Frobenius) errors "
+          + json.dumps(worst) + f" over {len(cpu['grads'])} parameters")
+    return worst
+
+
+def _reset_counts():
+    from sparsefusion_tpu_torch.kernels import attention, grid_encode
+
+    torch.cuda.synchronize()
+    grid_encode.reset_launches()
+    attention.reset_launches()
+
+
+def _read_counts():
+    from sparsefusion_tpu_torch.kernels import attention, grid_encode
+
+    torch.cuda.synchronize()
+    return {"grid_encode_fwd": grid_encode.grid_encode_cuda.launches,
+            "grid_encode_bwd": grid_encode.grid_encode_cuda_backward.launches,
+            "imagen_attention": attention.imagen_attention_cuda.launches}
+
+
+def train_main_path(counts):
+    """Full-width training through the CLI: 20 steps (checkpoints at 10
+    and at the end), then --resume for 2 more steps.  ``counts``: the
+    step counts of ``sparsefusion_tpu_torch.tools.flops`` for the f32
+    bound of the drawn context sizes."""
+    from sparsefusion_tpu_torch.cli.train import main as train_main
+    from sparsefusion_tpu_torch.tools.flops import step_flops
+
+    argv = ["-d", "synthetic", "-c", "any", "--image_size", "256",
+            "--save_itr", "10", "--vis_itr", "0", "--device", "cuda"]
+    with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_") as exp_dir:
+        argv += ["--exp_dir", exp_dir]
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        first = train_main(argv + ["--steps", "20"])
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        ckpt = os.path.join(exp_dir, "sf", "any", "ckpt_latest")
+        ckpt_gib = os.path.getsize(ckpt) / 2 ** 30
+        _reset_counts()
+        resumed = train_main(argv + ["--steps", "22", "--resume", ckpt])
+        launches_resumed = _read_counts()
+
+    t = np.asarray(first["step_times"])
+    sizes = first["context_sizes"][1:]
+    bound_s = sum(step_flops(counts, nc) for nc in sizes) / F32_OPS_PER_S
+    saves = sum(first["checkpoint_seconds"])   # the one at step 10
+    stats = {"steps_per_s": 19 / (t[19] - t[0]),       # steps 2..20
+             "steps_per_s_without_checkpoint": 19 / (t[19] - t[0] - saves),
+             "checkpoint_s": first["checkpoint_seconds"],
+             "step_ms_median": float(np.median(np.diff(t)) * 1e3),
+             "bound_steps_per_s": len(sizes) / bound_s,
+             "step_ms_min": float(np.diff(t).min() * 1e3),
+             "step_ms_max": float(np.diff(t).max() * 1e3),
+             "context_sizes": first["context_sizes"],
+             "peak_gib": peak / 2 ** 30, "wall_s": wall,
+             "checkpoint_gib": ckpt_gib, "unet_forwards": first["unet_evals"],
+             "loss_first5": float(np.mean(first["losses"][:5])),
+             "loss_last5": float(np.mean(first["losses"][-5:])),
+             "resumed_at": resumed["start_step"],
+             "resumed_losses": resumed["losses"]}
+    print("train main path: " + json.dumps(stats))
+    print(f"train main path: launches {json.dumps(launches)}; resumed run "
+          f"{json.dumps(launches_resumed)}")
+    assert len(first["losses"]) == 20 and np.isfinite(first["losses"]).all()
+    assert first["notfinite"] == {"unet": 0, "eft": 0}
+    assert first["params_without_grad"] == 0
+    assert resumed["start_step"] == 20 and len(resumed["losses"]) == 2
+    assert np.isfinite(resumed["losses"]).all()
+    for run, counted in ((first, launches), (resumed, launches_resumed)):
+        assert run["unet_evals"] > 0
+        assert counted["imagen_attention"] == 3 * run["unet_evals"], counted
+    return launches, stats
+
+
+def _kernel_class(name):
+    low = name.lower()
+    if "imagen_attention" in low:
+        return "k2_forward"
+    if any(key in low for key in ("conv", "implicit", "fprop", "dgrad",
+                                  "wgrad", "cudnn", "winograd")):
+        return "convolution"
+    if any(key in low for key in ("gemm", "cutlass", "matmul")):
+        return "matmul"
+    return "other"
+
+
+# record_function ranges of train/trainer.py on the host's thread
+TRAIN_RANGES = {
+    "eft_forward": "train/eft", "vae_encode": "train/vae_encode",
+    "unet_forward_and_loss": "train/unet_loss", "guard": "train/guard",
+    "adam": "train/adam"}
+
+
+def train_step_profile(counts, n_context=3):
+    """3 full-width train steps (after 2 warm ones) under torch.profiler:
+    device ms per step by kernel class and by range, host ms per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparsefusion_tpu_torch.cli.train import build_trio, parse_args
+    from sparsefusion_tpu_torch.core.cameras import get_relative_cameras
+    from sparsefusion_tpu_torch.data.synthetic import make_synthetic_scene
+    from sparsefusion_tpu_torch.tools.flops import step_flops
+    from sparsefusion_tpu_torch.train.trainer import (
+        TrainConfig,
+        make_optimizers,
+        make_train_step,
+        prepare_scene_batch,
+    )
+
+    models = build_trio(parse_args(["-c", "any"]), torch.device("cuda"))
+    cfg = TrainConfig()
+    unet_opt, eft_opt = make_optimizers(cfg, models)
+    step = make_train_step(models, cfg, unet_opt, eft_opt)
+    scene = make_synthetic_scene(n_views=10, image_size=256, seed=0)
+    batch = prepare_scene_batch([scene], [0], [list(range(1, 1 + n_context))],
+                                "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def run(n):
+        for _ in range(n):
+            float(step(batch, gen)[0])
+
+    run(2)
+    torch.cuda.synchronize()
+    _reset_counts()
+    evals0 = models.unet_evals
+    # kernels alone first (the device timeline by kernel name), then the
+    # same steps with the host ops, whose device time falls into ranges
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(PROFILE_TRAIN_STEPS)
+        host_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_TRAIN_STEPS
+    launches = _read_counts()
+    unet_forwards = models.unet_evals - evals0
+    per_step = _kernel_ms(prof, PROFILE_TRAIN_STEPS)
+    device_ms = sum(per_step.values())
+    by_class = {}
+    for name, ms in per_step.items():
+        by_class[_kernel_class(name)] = by_class.get(_kernel_class(name),
+                                                     0.0) + ms
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(PROFILE_TRAIN_STEPS)
+    by_range = dict.fromkeys(
+        list(TRAIN_RANGES) + ["backward", "k2_plain_backward"], 0.0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        ms = max(getattr(e, a, 0) or 0 for a in (
+            "device_time_total", "cuda_time_total")) / 1e3
+        # the backward runs on the autograd engine's thread, one
+        # evaluate_function range per node
+        if e.name.startswith("autograd::engine::evaluate_function:"):
+            by_range["backward"] += ms
+            if "ImagenAttentionFunctionBackward" in e.name:
+                by_range["k2_plain_backward"] += ms
+        for key, label in TRAIN_RANGES.items():
+            if e.name == label:
+                by_range[key] += ms
+    by_range = {k: v / PROFILE_TRAIN_STEPS for k, v in by_range.items()}
+    bound_ms, bound_by = _bound(counts["adam_bytes"],
+                                step_flops(counts, n_context))
+    stats = {"context_views": n_context, "device_ms_per_step": device_ms,
+             "host_ms_per_step": host_ms,
+             "device_idle_share": max(0.0, 1 - device_ms / host_ms),
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "bound_share": bound_ms / device_ms,
+             "by_kernel_class": by_class, "by_range": by_range,
+             "k2_launches_per_step": launches["imagen_attention"]
+             / PROFILE_TRAIN_STEPS,
+             "unet_forwards_per_step": unet_forwards / PROFILE_TRAIN_STEPS}
+    print(f"train step profile (mean of {PROFILE_TRAIN_STEPS} steps, "
+          f"{n_context} context views): " + json.dumps(stats))
+    for name, ms in sorted(per_step.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {ms:8.3f} ms/step ({100 * ms / device_ms:5.1f}%) "
+              f"{name[:110]}")
+    assert stats["k2_launches_per_step"] == 3 * stats["unet_forwards_per_step"]
+    assert by_class.get("k2_forward", 0) > 0
+
+    # the full-width visualization grid, called directly
+    rel = get_relative_cameras(scene.cameras(), [0])
+    vis = visualization_check(models, rel, scene)
+    del models, step, unet_opt, eft_opt
+    return stats, vis
+
+
+def visualization_check(models, rel, scene):
+    """One [contexts | ground truth | EFT render | 64-step sample] grid at
+    full width, from ``train/visualize.py`` (not the CLI's try/except)."""
+    from sparsefusion_tpu_torch.core.cameras import get_camera_slice
+    from sparsefusion_tpu_torch.train.trainer import scene_depth_range_from_cam
+    from sparsefusion_tpu_torch.train.visualize import save_visualization
+
+    near, far = scene_depth_range_from_cam(rel)
+    evals0 = models.unet_evals
+    with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_") as out_dir:
+        t0 = time.perf_counter()
+        grid = save_visualization(
+            models, get_camera_slice(rel, [0]).to("cuda"),
+            torch.as_tensor(scene.images[0], device="cuda"),
+            get_camera_slice(rel, [1, 2]).to("cuda"),
+            torch.as_tensor(scene.images[[1, 2]], device="cuda"), near, far,
+            os.path.join(out_dir, "vis.jpg"),
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        seconds = time.perf_counter() - t0
+    stats = {"grid_shape": list(grid.shape), "seconds": seconds,
+             "unet_forwards": models.unet_evals - evals0}
+    print("visualization: " + json.dumps(stats))
+    assert grid.shape == (256, 5 * 256, 3) and np.isfinite(grid).all()
+    assert stats["unet_forwards"] == 64
+    return stats
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -770,19 +1147,31 @@ def main(argv=None) -> int:
                if "imagen_attention" in f), "K2 issues no HMMA"
     small_input_step_check()
     small_diffusion_steps_check()
-    main_path()
+    ngp_launches, _ = main_path()
     launches, _ = diffusion_main_path()
+    small_train_step_check()
+    from sparsefusion_tpu_torch.tools.flops import train_step_counts
+
+    counts = train_step_counts()
+    train_launches, _ = train_main_path(counts)
+    train_profile, _ = train_step_profile(counts)
+    by_path = {name: {"ngp_demo": ngp_launches.get(name, 0),
+                      "diffusion_demo": launches[name],
+                      "train": train_launches[name]} for name in launches}
 
     t = times["ngp_16xC2_f32"]
     tr = times["ngp_16xC2_f32_rays"]
     tu = times["ngp_16xC2_f32_uniform_chunk"]
-    # K2 at the UNet's down_3/up_0 shape (19 keys)
+    # K2 at the UNet's down_3/up_0 shape (19 keys): the demo's batch of
+    # 1 and the train step's diffusion batch of 12
     ta = attn_times["q(1,8,16,64)_J19"]
+    tt = attn_times["q(12,8,16,64)_J19"]
     src = "sparsefusion_tpu_torch/csrc/grid_encode.cu"
     kernels = [
         {"name": "grid_encode_fwd", "route": "cuda", "source": src,
          "replaces": "sparsefusion_tpu/kernels/grid_gather.py:79",
-         "launches": launches["grid_encode_fwd"],
+         "launches": sum(by_path["grid_encode_fwd"].values()),
+         "launches_by_path": by_path["grid_encode_fwd"],
          "max_abs_err": errs["fwd"], "ms": t["fwd_ms"],
          "event_ms": t["fwd_event_ms"], "plain_ms": t["fwd_plain_ms"],
          "bound_ms": t["fwd_bound_ms"], "bound_by": "bytes",
@@ -793,7 +1182,8 @@ def main(argv=None) -> int:
          "warp_sectors_uniform_chunk": tu["fwd_warp_sectors"]},
         {"name": "grid_encode_bwd", "route": "cuda", "source": src,
          "replaces": "sparsefusion_tpu/kernels/grid_gather.py:133",
-         "launches": launches["grid_encode_bwd"],
+         "launches": sum(by_path["grid_encode_bwd"].values()),
+         "launches_by_path": by_path["grid_encode_bwd"],
          "max_abs_err": errs["bwd"], "ms": t["bwd_ms"],
          "event_ms": t["bwd_event_ms"], "plain_ms": t["bwd_plain_ms"],
          "bound_ms": t["bwd_bound_ms"], "bound_by": "bytes",
@@ -803,14 +1193,22 @@ def main(argv=None) -> int:
         {"name": "imagen_attention", "route": "cuda",
          "source": "sparsefusion_tpu_torch/csrc/imagen_attention.cu",
          "replaces": "sparsefusion_tpu/kernels/attention.py:70",
-         "launches": launches["imagen_attention"],
+         "launches": sum(by_path["imagen_attention"].values()),
+         "launches_by_path": by_path["imagen_attention"],
          "max_abs_err": attn_err, "ms": ta["ms"],
          "event_ms": ta["event_ms"], "plain_ms": ta["plain_ms"],
          "bound_ms": ta["bound_ms"], "bound_by": ta["bound_by"],
          "library_ms": ta["library_ms"],
          "library_backend": ta["library_backend"],
+         "train_shape": {key: tt[key] for key in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "plain_backward_ms")},
+         "train_step_ms_per_step": train_profile["by_kernel_class"][
+             "k2_forward"],
+         "train_step_plain_backward_ms_per_step": train_profile[
+             "by_range"]["k2_plain_backward"],
          "shapes": {name: {key: s[key] for key in (
-             "ms", "plain_ms", "library_ms", "bound_ms")}
+             "ms", "plain_ms", "library_ms", "bound_ms", "plain_backward_ms")}
              for name, s in attn_times.items()}},
     ]
     assert all(math.isfinite(k["ms"]) for k in kernels)

@@ -16,13 +16,17 @@ Layout:
     kernels/   hand-written CUDA kernels (sources in ``csrc/``) + build
     nn/        the instant-NGP field, the view-conditioned UNet, the SD
                VAE, the EFT and its ResNet18 trunk
-    diffusion/ log-SNR schedule, DDPM guidance, the PLMS sampler
+    diffusion/ log-SNR schedule, DDPM loss and ancestral sampling, the
+               PLMS sampler
     render/    the NGP volume renderer, the EFT light-field renderer
-    data/      scene contract, procedural and co3d_toy scenes
+    data/      scene contract, procedural, co3d_toy and CO3Dv2 scenes
     distill/   per-scene distillation loop (EFT cache, bootstrap, fusion)
-    train/     import of reference checkpoints
+    train/     the train step, checkpoints, visualization, import of
+               reference checkpoints
+    parallel/  torch.distributed start-up and scene sharding
     models.py  the EFT / VAE / UNet bundle
-    cli/       demo front-end (argparse-compatible with the JAX package)
+    cli/       demo and train front-ends (argparse-compatible with the
+               JAX package)
 """
 import torch
 

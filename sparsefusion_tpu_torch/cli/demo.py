@@ -13,7 +13,7 @@ when no EFT checkpoint is given).  ``--no_diffusion`` runs the NGP-only
 path.  On ``--device cpu`` the UNet and VAE are the narrow test models
 (``models.narrow_model_configs``): the CPU path is for tests and
 rehearsals, and the full-width UNet needs latents of 8 x 8 or more.
-LPIPS, ``-d co3d``, ``--preset tpu`` and ``--scene_batch > 1`` raise
+LPIPS, ``--preset tpu`` and ``--scene_batch > 1`` raise
 ``NotImplementedError`` naming their ROADMAP item; ``--no_fused`` and
 ``-g`` / ``-p`` are accepted and change nothing.  With ``--device cuda``
 and no CUDA device the demo raises; it never continues on the CPU.
@@ -93,17 +93,24 @@ def select_input_views(val_seed: int, val_idx: int, n_frames: int,
 
 
 def load_dataset(args, device):
+    """The scenes of ``-d``: the synthetic blobs (as many as ``val_list``
+    needs, 4 without one, as the train CLI), the co3d_toy pickle, or the
+    CO3Dv2 release's ``fewview_dev`` subset at stage ``test`` (the JAX
+    package's choice, which its train CLI shares)."""
     if args.dataset_name == "synthetic":
         from sparsefusion_tpu_torch.data.synthetic import SyntheticDataset
 
-        return SyntheticDataset(n_scenes=max(args.val_list) + 1, n_views=10,
+        n_scenes = max(getattr(args, "val_list", [3])) + 1
+        return SyntheticDataset(n_scenes=n_scenes, n_views=10,
                                 image_size=args.image_size, device=device)
     if args.dataset_name == "co3d_toy":
         from sparsefusion_tpu_torch.data.co3d_toy import CO3DToyDataset
 
         return CO3DToyDataset(args.root, args.category)
-    raise NotImplementedError("the CO3Dv2 reader (data/co3d.py) is not "
-                              "ported yet: ROADMAP.md section 1, item 11")
+    from sparsefusion_tpu_torch.data.co3d import CO3Dv2Dataset
+
+    return CO3Dv2Dataset(args.root, args.category, subset="fewview_dev",
+                         stage="test", image_size=args.image_size)
 
 
 def resolve_device(name: str) -> torch.device:

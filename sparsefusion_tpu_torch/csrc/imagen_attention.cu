@@ -20,10 +20,13 @@
 //   holds 1, 2 or 4 warps, fewer when the grid would otherwise leave SMs
 //   idle (the UNet's 128 rows run as 8 one-warp blocks, not one block).
 //   Rows past H*N load zeros and store nothing.
-// * k/v tiles of kJ keys (32 at D = 64, 64 at D = 32) stream into shared
-//   memory with 16-byte cp.async, double-buffered; keys past J load as
-//   zeros and their logits are -inf.  Rows are padded to D + 4 floats so
-//   that every fragment read below hits 32 distinct banks.
+// * k/v tiles of kJ keys (2048 / D: 32 at D = 64, 64 at D = 32, 128 at
+//   D = 16; capped at 128 at D = 8, where S's fragment of a 256-key tile
+//   would take 128 registers a thread) stream into shared memory with
+//   16-byte cp.async, double-buffered (40 KB at D = 16, the most); keys
+//   past J load as zeros and their logits are -inf.  Rows are padded to
+//   D + 4 floats so that every fragment read below hits 32 distinct banks
+//   (at D = 8, 16, 32 and 64).
 // * Products on the tensor cores: S = Q K^T and O += P V are
 //   mma.sync.m16n8k8 in TF32 with f32 accumulation, each operand split
 //   as x = big + small (big = tf32(x), small = tf32(x - big)) and each
@@ -115,8 +118,8 @@ imagen_attention_fwd_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
                             float* __restrict__ out, int rows, int J) {
-    static_assert(D % 32 == 0, "head dim must be a multiple of 32");
-    constexpr int kJ = 2048 / D;  // keys per tile
+    static_assert(D % 8 == 0, "head dim must be a multiple of 8");
+    constexpr int kJ = 2048 / D < 128 ? 2048 / D : 128;  // keys per tile
     constexpr int kLd = D + 4;    // shared row pitch, in floats
     constexpr int kDSteps = D / 8;
     constexpr int kJSteps = kJ / 8;
@@ -324,6 +327,8 @@ extern "C" int sf_imagen_attention_fwd(const void* q, const void* k,
     float* of = static_cast<float*>(out);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (D) {
+        case 8: return (int)launch<8>(qf, kf, vf, of, batch, rows, J, s);
+        case 16: return (int)launch<16>(qf, kf, vf, of, batch, rows, J, s);
         case 32: return (int)launch<32>(qf, kf, vf, of, batch, rows, J, s);
         case 64: return (int)launch<64>(qf, kf, vf, of, batch, rows, J, s);
         default: return (int)cudaErrorInvalidValue;

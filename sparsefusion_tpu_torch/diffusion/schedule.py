@@ -60,6 +60,30 @@ class GaussianDiffusion:
         """The UNet's time signal: the log-SNR itself."""
         return None if times is None else self.log_snr(times)
 
+    def sample_random_times(self, batch: int, generator: torch.Generator,
+                            max_thres: float = 0.999) -> torch.Tensor:
+        """(batch,) times uniform on [0, max_thres), on the generator's
+        device."""
+        return torch.rand(batch, generator=generator,
+                          device=generator.device) * max_thres
+
+    def sample_random_times_bounded(self, batch: int,
+                                    generator: torch.Generator,
+                                    min_thres: float = 0.0,
+                                    max_thres: float = 0.999
+                                    ) -> torch.Tensor:
+        """(batch,) times uniform on [min_thres, max_thres)."""
+        u = torch.rand(batch, generator=generator, device=generator.device)
+        return min_thres + u * (max_thres - min_thres)
+
+    def get_sampling_timesteps(self, batch: int, device=None
+                               ) -> torch.Tensor:
+        """(steps, 2, batch) consecutive (t, t_next) pairs from 1 to 0."""
+        times = torch.linspace(1.0, 0.0, self.num_timesteps + 1,
+                               device=device)
+        pairs = torch.stack([times[:-1], times[1:]], dim=1)  # (steps, 2)
+        return pairs[:, :, None].expand(self.num_timesteps, 2, batch)
+
     def q_sample(self, x_start: torch.Tensor, t, noise: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Noise x_start to time t (a float or (B,)).  Returns

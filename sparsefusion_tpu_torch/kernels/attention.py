@@ -22,7 +22,7 @@ from sparsefusion_tpu_torch.ops.attention import (
     imagen_attention_plain,
 )
 
-HEAD_DIMS = (32, 64)
+HEAD_DIMS = (8, 16, 32, 64)
 
 
 def _check(name: str, t: torch.Tensor) -> None:

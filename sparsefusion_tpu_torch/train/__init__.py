@@ -1,1 +1,2 @@
-"""Weight import from reference checkpoints."""
+"""Training: the train step and its guarded optimizers, checkpoints,
+visualization grids, and import of reference checkpoints."""

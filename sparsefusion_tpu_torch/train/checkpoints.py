@@ -1,6 +1,11 @@
-"""Import of reference checkpoints into the port's models.
+"""The port's training checkpoints, and import of reference checkpoints.
 
-Counterpart of the importers of ``sparsefusion_tpu/train/checkpoints.py``.
+Counterpart of ``sparsefusion_tpu/train/checkpoints.py``.  A training
+checkpoint (:func:`save_checkpoint`) is one ``torch.save`` file of the
+trainer's state (step, model state dicts, optimizers with their schedules
+and guard counts, random states), written to a temporary file and renamed
+into place, so a reader never sees half a checkpoint.
+
 The port's module names are the reference's, so a checkpoint loads with
 ``load_state_dict`` once its prefixes are handled:
 
@@ -23,6 +28,26 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+
+
+def save_checkpoint(path: str, state: Dict) -> None:
+    """``torch.save`` ``state`` to ``path``: a temporary file beside it,
+    then an atomic rename."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        torch.save(state, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def restore_checkpoint(path: str, map_location="cpu") -> Dict:
+    """The state a :func:`save_checkpoint` wrote (a file this program
+    wrote, so it is unpickled in full)."""
+    return torch.load(path, map_location=map_location, weights_only=False)
 
 
 def strip_sd_prefixes(sd: Dict) -> Dict:

@@ -142,6 +142,31 @@ def test_imagen_attention_kernel_ragged_shapes(b, hn, n_keys, d):
                                atol=1e-5, rtol=0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16])
+@pytest.mark.parametrize("n_keys", [1, 7, 9, 17, 19, 127, 128, 129, 257,
+                                    1027])
+@pytest.mark.parametrize("bhn", [(1, 1, 5), (12, 2, 16), (12, 8, 16),
+                                 (2, 2, 2048)],
+                         ids=lambda bhn: "B{}H{}N{}".format(*bhn))
+def test_imagen_attention_kernel_small_head_dims(bhn, n_keys, d):
+    """Head dims 8 and 16 (the narrow UNet's ``attn_dim_head=8``): partial
+    m-tiles, k/v tiles of 128 keys (J around one and two tiles), the
+    train step's diffusion batch of 12; under the f32 tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    b, h, n = bhn
+    rng = np.random.RandomState(b * 1000 + n_keys + d)
+    q = torch.tensor((rng.randn(b, h, n, d) * d ** -0.5).astype(np.float32))
+    k = torch.tensor(rng.randn(b, n_keys, d).astype(np.float32))
+    v = torch.tensor(rng.randn(b, n_keys, d).astype(np.float32))
+    q, k, v = q.cuda(), k.cuda(), v.cuda()
+    got = attention.imagen_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, imagen_attention_plain(q, k, v),
+                               atol=1e-5, rtol=0)
+
+
 def _ray_points(n_rays, n_samples, seed):
     from sparsefusion_tpu_torch.ops.grid_encode import ray_ordered_points
 
