@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py [--kernels-only] [--csrc DIR]
 
+f32 matmuls and convolutions run in full f32 throughout (``set_tf32(False)``
+first), except in the TF32 train profile of step 7.
+
 1. Prints the card (``nvidia-smi`` name and power limit).
 2. Builds the port's CUDA kernels from ``sparsefusion_tpu_torch/csrc``
    (``--csrc DIR``: from another directory of sources with the same C
    entry points) and prints ptxas's registers, shared memory and spills
-   per kernel and their SASS opcode counts (HMMA, RED, ATOM, LDG); K2
-   must issue HMMA.
+   per kernel and their SASS opcode counts (HMMA, RED, ATOM, LDG); both
+   of K2's instances (f32 and bf16) must issue HMMA.
 3. Kernel phase: the fused grid-encode kernel (K1), forward and table
    gradient, against its plain PyTorch version on the same inputs, at
    ``NGPConfig()`` width (16 levels x C2, f32) on 2,097,152 uniform
@@ -19,47 +22,59 @@
    the two chunks: the 32-byte table sectors one launch reads (counted
    with the plain version's index math), per launch and per warp and
    level, and the sectors per second achieved.  The imagen attention kernel
-   (K2) against its plain version at the UNet's shapes (1, 8, 16, 64)
-   with 17 and 19 keys, at the train step's (12, 8, 16, 64) with 17 and
-   19 keys and at (2, 8, 1024, 64) with 1027 keys, beside one
-   ``scaled_dot_product_attention`` call as its yardstick (the port never
-   calls it) and the plain backward's time; head dims 8 and 16 at ragged
-   shapes.  Times are device times by ``torch.profiler``, with
-   CUDA-event times beside them; each kernel's bound is computed from the
-   bytes and operations of its inputs.  Then the NGP-only demo's input
-   step at full width under ``torch.profiler``: device time per step by
-   kernel, K1's launches per step and its time per launch on the
-   renderer's own points.  ``--kernels-only`` stops here.
+   (K2), f32 and bf16 instances, each against its plain version in its
+   type, at the UNet's shapes (1, 8, 16, 64) with 17 and 19 keys, at the
+   train step's (12, 8, 16, 64) with 17 and 19 keys and at (2, 8, 1024,
+   64) with 1027 keys, beside one ``scaled_dot_product_attention`` call
+   in the same type as its yardstick (the port never calls it) and the
+   plain backward's time; head dims 8 and 16 (bf16 also 32) at ragged
+   shapes; head dim 48 through the dispatcher in both types (the plain
+   version, no launch).  Times are device times by ``torch.profiler``,
+   with CUDA-event times beside them; each kernel's bound is computed
+   from the bytes and operations of its inputs.  Then the NGP-only
+   demo's input step at full width under ``torch.profiler``: device time
+   per step by kernel, K1's launches per step and its time per launch on
+   the renderer's own points.  ``--kernels-only`` stops here.
 4. Card against CPU: one input step on a small input, then one
    bootstrap step and one fusion step (narrow UNet and VAE, 2-step
-   PLMS) from the same weights and draws.
+   PLMS) from the same weights and draws; then with the bf16 sampler
+   (``DistillConfig(sampler_bf16=True)``) the sampler's target of one
+   image and one fusion step.
 5. The NGP-only demo at full width (``DistillConfig()``, ``NGPConfig()``,
    256 px, 100 iterations) through ``sparsefusion_tpu_torch.cli.demo.main``.
 6. Main path: the full-width diffusion demo (``UNetConfig()``,
    ``VAEConfig()``, ``EFTConfig()``, 256 px, 40 iterations, fusion after
-   iteration 20).  Each demo runs with the kernels' launch counts reset
-   just before and read just after; K2 must launch three times per UNet
-   evaluation.
+   iteration 20), through ``cli.demo.main`` and again through
+   ``distillation_loop`` with ``DistillConfig(sampler_bf16=True)``.  Each
+   demo runs with the kernels' launch counts reset just before and read
+   just after; K2 must launch three times per UNet evaluation (every
+   attention layer of ``UNetConfig()`` has head dim 64, which K2 has an
+   instance for; a head dim without one takes the plain version), in
+   bf16 for the bf16 sampler.  Then one batch-1 UNet evaluation, as the
+   sampler makes it, under ``torch.profiler`` in f32, TF32 and bf16:
+   device and host ms, kernels per evaluation, by kernel class.
 7. Training.  One train step of the tiny models (``--preset tiny``: K2
    at head dim 8) on the card against the CPU from the same weights,
-   batch and draws: loss, every gradient, the parameters after the
-   guarded Adam step; then a NaN batch, which must leave the parameters
-   bit-identical and count one skipped update.  Then the full-width
-   training main path through ``sparsefusion_tpu_torch.cli.train.main``
-   (256 px, diffusion batch 12, 2-5 context views): 20 steps with a
-   checkpoint at 10 and at the end, then ``--resume`` for 2 more; steps/s
-   over steps 2-20 (host clock, each step ends in a loss read), peak
-   memory, K2 launches == 3 x UNet forwards in each run.  Then 3 train
-   steps under ``torch.profiler``: device ms per step by kernel class
-   (convolutions, matmuls, K2) and by range (EFT, VAE encode, UNet loss,
-   backward, K2's plain backward, guard, Adam), beside the step's f32
-   bound (operations counted by ``sparsefusion_tpu_torch.tools.flops``).
+   batch and draws, in f32 and with the UNet in bf16: loss, every
+   gradient, the parameters after the guarded Adam step; then a NaN
+   batch, which must leave the parameters bit-identical and count one
+   skipped update.  Then the full-width training main path through
+   ``sparsefusion_tpu_torch.cli.train.main`` (256 px, diffusion batch
+   12, 2-5 context views), in f32 and with ``--bf16``: 20 steps with a
+   checkpoint at 10 and at the end, then ``--resume`` for 2 more;
+   steps/s over steps 2-20 (host clock, each step ends in a loss read),
+   peak memory, K2 launches == 3 x UNet forwards in each run.  Then 3
+   train steps under ``torch.profiler`` in each of f32, TF32
+   (``set_tf32(True)``) and bf16 (``--bf16``): device ms per step by
+   kernel class (convolutions, matmuls, K2) and by range (EFT, VAE
+   encode, UNet loss, backward, K2's plain backward, guard, Adam),
+   beside the step's bound at its precision (operations counted by
+   ``sparsefusion_tpu_torch.tools.flops``); before each, one step on
+   fixed draws whose loss and gradients are held against the f32 one.
    Then one full-width visualization grid (64-step ancestral sample),
    called directly.
-8. Prints the kernels' JSON line, then ``{"ok": true, "device": ...}``
-   as the last line.
-
-TF32 stays off throughout (the package turns it off at import).
+8. Prints the kernels' JSON line (K2's bf16 instance an entry of its
+   own), then ``{"ok": true, "device": ...}`` as the last line.
 
 Every check asserts or raises; the script exits non-zero without a
 result when there is no CUDA device or the port is not importable.
@@ -77,16 +92,17 @@ import time
 import numpy as np
 import torch
 
+from sparsefusion_tpu_torch.tools.flops import BF16_OPS_PER_S, F32_OPS_PER_S
+
 N_POINTS = 16384 * 128          # rays x samples of one 128^2 input step
 RAY_CHUNK = (4096, 64)          # rays x samples of one launch on the main path
 TIMING_ITERS = 10
 PROFILE_ITERS = 10
 PROFILE_STEPS = 5
 PROFILE_TRAIN_STEPS = 3
-# NVIDIA H100 SXM data sheet: memory rate and the f32 peak outside the
-# tensor cores (TF32 on the tensor cores: 495e12)
+# NVIDIA H100 SXM data sheet: memory rate (the peaks of f32 outside the
+# tensor cores and of bf16 on them are the flops tool's)
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 
 
 def _device_lines():
@@ -137,20 +153,45 @@ def _kernel_ms(prof, n_calls):
     return by_name
 
 
+def _profile_window(run, n_calls, reset=None, attempts=3):
+    """torch.profiler's device activity over ``run()``, which makes
+    ``n_calls`` calls and ends in a synchronise: (kernel name -> device ms
+    per call, the profile, host ms per call).  ``reset()`` runs before
+    each attempt.  A window whose profile recorded no device time (the
+    tracer now and then returns none) is taken again, up to ``attempts``
+    times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(attempts):
+        if reset is not None:
+            reset()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / n_calls
+        try:
+            return _kernel_ms(prof, n_calls), prof, host_ms
+        except RuntimeError:
+            if attempt == attempts - 1:
+                raise
+            print(f"  (profiler: no device time recorded, attempt "
+                  f"{attempt + 1} of {attempts})")
+
+
 def _device_ms(fn):
     """Device time of one fn() call by torch.profiler, over PROFILE_ITERS
     calls after 2 warm ones: {kernel name: ms per call}, summed over the
     call's launches of that kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(PROFILE_ITERS):
             fn()
-        torch.cuda.synchronize()
-    return _kernel_ms(prof, PROFILE_ITERS)
+
+    return _profile_window(run, PROFILE_ITERS)[0]
 
 
 def _named_ms(by_name, kernel):
@@ -161,12 +202,12 @@ def _named_ms(by_name, kernel):
     return sum(ms)
 
 
-def _bound(n_bytes, f32_ops=0):
+def _bound(n_bytes, ops=0, ops_per_s=F32_OPS_PER_S):
     """The least time the card could take: each input byte read once and
     each output byte written once at the memory rate, or the operations
-    at the f32 peak, whichever is larger."""
+    at the peak of their type (f32 unless given), whichever is larger."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = f32_ops / F32_OPS_PER_S
+    t_ops = ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -396,8 +437,6 @@ def input_step_profile():
     steps, then PROFILE_STEPS steps under torch.profiler.  Reports device
     time per step by kernel, the kernels' launches per step, and the host
     clock per step (each step ends in a loss read)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from sparsefusion_tpu_torch.core.cameras import (
         get_camera_slice,
         get_relative_cameras,
@@ -436,17 +475,17 @@ def input_step_profile():
     for i in range(5):
         step(i)
     torch.cuda.synchronize()
-    grid_encode.reset_launches()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         for i in range(PROFILE_STEPS):
             step(i)
-        host_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+
+    per_step, _, host_ms = _profile_window(
+        run, PROFILE_STEPS, reset=grid_encode.reset_launches)
     launches = {"grid_encode_fwd": grid_encode.grid_encode_cuda.launches
                 / PROFILE_STEPS,
                 "grid_encode_bwd": grid_encode.grid_encode_cuda_backward
                 .launches / PROFILE_STEPS}
-    per_step = _kernel_ms(prof, PROFILE_STEPS)
     device_ms = sum(per_step.values())
     k1 = {"fwd_ms": _named_ms(per_step, "grid_encode_fwd_kernel"),
           "bwd_ms": _named_ms(per_step, "grid_encode_bwd_kernel")}
@@ -470,12 +509,19 @@ def input_step_profile():
 ATTN_SHAPES = [(1, 8, 16, 64, 17), (1, 8, 16, 64, 19),
                (12, 8, 16, 64, 17), (12, 8, 16, 64, 19),
                (2, 8, 1024, 64, 1027)]
-# head dims 8 and 16 (the tiny UNet's 8): ragged rows and keys around the
-# 128-key tiles
+# head dims 8 and 16 (the tiny UNet's 8), and in bf16 also 32: ragged rows
+# and keys around the 64- and 128-key tiles
 ATTN_SMALL_D_SHAPES = [(1, 1, 5, 8, 1), (12, 2, 16, 8, 17),
                        (3, 4, 37, 8, 257), (12, 2, 16, 16, 129),
                        (2, 2, 2048, 16, 1027)]
-ATTN_TOL = 1e-5
+ATTN_BF16_D32_SHAPES = [(1, 1, 5, 32, 1), (3, 4, 37, 32, 257),
+                        (2, 2, 2048, 32, 1027)]
+# f32: the kernel's 3xTF32 products and online softmax sum in another
+# order than the plain softmax.  bf16: |err| <= atol + rtol |plain|; the
+# kernel rounds the unnormalised P and the plain version the normalised
+# one, and each rounds its output once: one output ulp (2^-7 relative)
+# plus P's rounding over the keys (tests/test_torch_kernels_cuda.py)
+ATTN_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 2 ** -7)}
 
 
 def _sdpa_yardstick(q, k, v, want):
@@ -517,35 +563,57 @@ def _sdpa_yardstick(q, k, v, want):
     return best
 
 
-def attention_phase():
-    """K2 against its plain version; returns the largest error and, per
-    shape, the kernel's device time, its event time, the plain version's
-    and the library's device times, and the bound."""
+def _attn_inputs(b, h, n, d, j, gen, dtype):
+    q = torch.randn(b, h, n, d, device="cuda", generator=gen) * d ** -0.5
+    k = torch.randn(b, j, d, device="cuda", generator=gen)
+    v = torch.randn(b, j, d, device="cuda", generator=gen)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def _attn_err(got, want, dtype):
+    """(max |got - want|, whether it is within the dtype's tolerance)."""
+    atol, rtol = ATTN_TOL[dtype]
+    err = (got.float() - want.float()).abs()
+    return err.max().item(), bool((err <= atol + rtol * want.float().abs())
+                                  .all())
+
+
+def attention_phase(dtype=torch.float32):
+    """K2's instance for ``dtype`` against its plain version in that type;
+    returns the largest error and, per shape, the kernel's device time,
+    its event time, the plain version's and the library's device times,
+    the plain backward's, and the bound.  Then D = 48 through the
+    dispatcher: the plain version, no launch."""
+    from sparsefusion_tpu_torch.kernels import attention
     from sparsefusion_tpu_torch.kernels.attention import imagen_attention_cuda
     from sparsefusion_tpu_torch.ops.attention import (
         imagen_attention_backward_plain,
         imagen_attention_plain,
     )
 
+    bf16 = dtype == torch.bfloat16
+    kernel = ("imagen_attention_bf16_fwd_kernel" if bf16
+              else "imagen_attention_fwd_kernel")
+    ops_per_s = BF16_OPS_PER_S if bf16 else F32_OPS_PER_S
+    atol, rtol = ATTN_TOL[dtype]
+    tol = f"tol {atol:.0e} + {rtol:.2e} |plain|"
     gen = torch.Generator(device="cuda").manual_seed(1)
     err_max, times = 0.0, {}
     for b, h, n, d, j in ATTN_SHAPES:
-        q = torch.randn(b, h, n, d, device="cuda", generator=gen) * d ** -0.5
-        k = torch.randn(b, j, d, device="cuda", generator=gen)
-        v = torch.randn(b, j, d, device="cuda", generator=gen)
-        g = torch.randn(b, h, n, d, device="cuda", generator=gen)
+        q, k, v = _attn_inputs(b, h, n, d, j, gen, dtype)
+        g = torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
         out_k = imagen_attention_cuda(q, k, v)
         torch.cuda.synchronize()
         out_p = imagen_attention_plain(q, k, v)
-        err = (out_k - out_p).abs().max().item()
+        err, ok = _attn_err(out_k, out_p, dtype)
         name = f"q{(b, h, n, d)}_J{j}".replace(" ", "")
-        print(f"kernel imagen_attention {name}:")
+        print(f"kernel {kernel} {name}:")
         lib_ms, variant, backend, lib_err = _sdpa_yardstick(q, k, v, out_p)
         bound_ms, bound_by = _bound(_nbytes(q, k, v, out_k),
-                                    4 * b * h * n * j * d)
+                                    4 * b * h * n * j * d, ops_per_s)
         times[name] = {
             "ms": _named_ms(_device_ms(lambda: imagen_attention_cuda(q, k, v)),
-                            "imagen_attention_fwd_kernel"),
+                            kernel),
             "event_ms": _time_ms(lambda: imagen_attention_cuda(q, k, v)),
             "plain_ms": sum(_device_ms(
                 lambda: imagen_attention_plain(q, k, v)).values()),
@@ -559,41 +627,50 @@ def attention_phase():
             "library_backend": backend, "library_max_abs_err": lib_err,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": err}
-        # f32 on both sides; the kernel's 3xTF32 products and online
-        # softmax sum in another order than the plain softmax
-        print(f"  {json.dumps(times[name])} (tol {ATTN_TOL:.0e})")
-        assert torch.isfinite(out_k).all()
-        assert err <= ATTN_TOL, f"K2 disagrees at {name}"
+        print(f"  {json.dumps(times[name])} ({tol})")
+        assert torch.isfinite(out_k.float()).all()
+        assert ok, f"K2 {dtype} disagrees at {name}"
         err_max = max(err_max, err)
-    for b, h, n, d, j in ATTN_SMALL_D_SHAPES:
-        q = torch.randn(b, h, n, d, device="cuda", generator=gen) * d ** -0.5
-        k = torch.randn(b, j, d, device="cuda", generator=gen)
-        v = torch.randn(b, j, d, device="cuda", generator=gen)
+    small = ATTN_SMALL_D_SHAPES + (ATTN_BF16_D32_SHAPES if bf16 else [])
+    for b, h, n, d, j in small:
+        q, k, v = _attn_inputs(b, h, n, d, j, gen, dtype)
         out_k = imagen_attention_cuda(q, k, v)
         torch.cuda.synchronize()
-        err = (out_k - imagen_attention_plain(q, k, v)).abs().max().item()
-        print(f"kernel imagen_attention q{(b, h, n, d)}_J{j}: max_abs_err "
-              f"{err:.3e} (tol {ATTN_TOL:.0e})")
-        assert torch.isfinite(out_k).all()
-        assert err <= ATTN_TOL, f"K2 disagrees at D = {d}"
+        err, ok = _attn_err(out_k, imagen_attention_plain(q, k, v), dtype)
+        print(f"kernel {kernel} q{(b, h, n, d)}_J{j}: max_abs_err "
+              f"{err:.3e} ({tol})")
+        assert torch.isfinite(out_k.float()).all()
+        assert ok, f"K2 {dtype} disagrees at D = {d}"
         err_max = max(err_max, err)
+    # a head dim without an instance: the dispatcher takes the plain
+    # version (the reference runs any head dim); the kernel refuses it
+    q, k, v = _attn_inputs(2, 4, 16, 48, 19, gen, dtype)
+    attention.reset_launches()
+    routed = attention.imagen_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.imagen_attention_cuda.launches == 0
+    assert torch.equal(routed, imagen_attention_plain(q, k, v))
     try:
-        q = torch.zeros(1, 2, 4, 48, device="cuda")
-        k = torch.zeros(1, 3, 48, device="cuda")
-        imagen_attention_cuda(q, k, k)
+        imagen_attention_cuda(q, k, v)
     except ValueError:
         pass
     else:
         raise AssertionError("K2 took an unsupported head dim")
+    print(f"K2 {dtype} at D = 48: the dispatcher ran the plain version, "
+          "no launch; the kernel refused it")
     return err_max, times
 
 
-def small_diffusion_steps_check():
+def small_diffusion_steps_check(sampler_bf16=False):
     """One bootstrap step and one fusion step (narrow UNet and VAE with
     64-wide attention heads, randomised final conv, 2-step PLMS) on the
-    card and on the CPU from the same weights and draws."""
+    card and on the CPU from the same weights and draws.  With
+    ``sampler_bf16``: the sampler's target of one image and one fusion
+    step, the UNet in bf16 on both sides (K2's bf16 instance on the
+    card)."""
     import copy
 
+    from sparsefusion_tpu_torch.kernels import attention
     from sparsefusion_tpu_torch.core.cameras import (
         get_camera_slice,
         get_relative_cameras,
@@ -610,7 +687,8 @@ def small_diffusion_steps_check():
     from sparsefusion_tpu_torch.nn.vae import VAEConfig
     from sparsefusion_tpu_torch.render.volume import VolumeRendererConfig
 
-    cfg = DistillConfig(max_ray_batch=256, plms_steps=2)
+    cfg = DistillConfig(max_ray_batch=256, plms_steps=2,
+                        sampler_bf16=sampler_bf16)
     scene = make_synthetic_scene(n_views=2, image_size=32, seed=0)
     vcfg = VolumeRendererConfig(max_ray_batch=256)
     rng = np.random.RandomState(0)
@@ -650,53 +728,180 @@ def small_diffusion_steps_check():
         cam = get_camera_slice(get_relative_cameras(
             scene.cameras(dev), [0], center_at_origin=False), [1])
         draws = {k: v.to(dev) for k, v in render.items()}
+        attention.reset_launches()
         res = {}
-        for name, losses_fn, extra in (
-                ("bootstrap", steps.bootstrap_losses, (eft_img.to(dev),)),
-                ("fusion", steps.fusion_losses, (features.to(dev), mt))):
+        phases = [("fusion", steps.fusion_losses, (features.to(dev), mt))]
+        if sampler_bf16:
+            res["target"] = steps.fusion_target(
+                eft_img.to(dev), features.to(dev), mt,
+                plms_noise=plms_noise)[0].cpu()
+        else:
+            phases.insert(0, ("bootstrap", steps.bootstrap_losses,
+                              (eft_img.to(dev),)))
+        for name, losses_fn, extra in phases:
             field.zero_grad()
             loss = losses_fn(vcfg, cam, *extra,
                              draws=dict(draws, plms_noise=plms_noise))
             loss.backward()
             res[name] = (loss.item(), {n: p.grad.cpu().clone()
                                        for n, p in field.named_parameters()})
-        out.append((res, models.unet_evals))
-    (cpu, evals_cpu), (gpu, evals_gpu) = out
-    assert evals_cpu == evals_gpu == 3, (evals_cpu, evals_gpu)
-    for name in ("bootstrap", "fusion"):
+        out.append((res, models.unet_evals,
+                    attention.imagen_attention_cuda.launches_bf16))
+    (cpu, evals_cpu, _), (gpu, evals_gpu, k2_bf16) = out
+    evals = 6 if sampler_bf16 else 3
+    assert evals_cpu == evals_gpu == evals, (evals_cpu, evals_gpu)
+    assert k2_bf16 == (3 * evals if sampler_bf16 else 0), k2_bf16
+    stats = {}
+    if sampler_bf16:
+        # the UNet in bf16 on both sides, rounding in other places
+        # (cuDNN's bf16 convolutions against the CPU's): the target image
+        # in [0, 1] to 5e-2, the loss to 1e-2 relative.  The gradients
+        # are the f32 render's backward against that target; an L1's sign
+        # flips where the render lies between the two targets, so they
+        # are printed, not held to f32's 5e-2.
+        stats["target_max_abs_err"] = (cpu["target"] - gpu["target"]).abs() \
+            .max().item()
+        print("bf16 sampler target cpu vs cuda: max abs err "
+              f"{stats['target_max_abs_err']:.3e} (tol 5e-2)")
+        assert stats["target_max_abs_err"] <= 5e-2
+    for name, _, _ in phases:
         l_cpu, g_cpu = cpu[name]
         l_gpu, g_gpu = gpu[name]
-        print(f"{name} step cpu vs cuda: loss {l_cpu:.7f} vs {l_gpu:.7f}")
-        # f32 on both sides; the renderer's draws are shared, its sums
-        # are not ordered alike (see the input step)
-        assert abs(l_cpu - l_gpu) <= 1e-4 * abs(l_cpu), name
+        print(f"{name} step{' (bf16 sampler)' if sampler_bf16 else ''} cpu "
+              f"vs cuda: loss {l_cpu:.7f} vs {l_gpu:.7f}")
+        stats[f"{name}_loss_rel"] = abs(l_cpu - l_gpu) / abs(l_cpu)
+        # f32: the renderer's draws are shared, its sums are not ordered
+        # alike (see the input step)
+        assert stats[f"{name}_loss_rel"] <= (1e-2 if sampler_bf16
+                                             else 1e-4), name
         for pname, gc in g_cpu.items():
             rel = ((gc - g_gpu[pname]).norm() / gc.norm()).item()
             print(f"  grad {pname}: relative (Frobenius) err {rel:.3e}")
-            assert rel <= 5e-2, f"{name}: gradient of {pname} disagrees"
+            assert torch.isfinite(g_gpu[pname]).all()
+            assert sampler_bf16 or rel <= 5e-2, \
+                f"{name}: gradient of {pname} disagrees"
+    return stats
 
 
-def diffusion_main_path():
-    """The full-width diffusion demo, 40 iterations, fusion after 20."""
+def unet_eval_profile(n_evals=PROFILE_ITERS):
+    """One batch-1 evaluation of the full-width UNet as the sampler makes
+    it (a 32 x 32 latent, 256 feature channels, no grad) in f32, in TF32
+    (``set_tf32(True)``) and through the bf16 copy (``sampler_bf16``):
+    device ms and kernels per evaluation, by kernel class, and the host
+    ms per evaluation (``n_evals`` back to back, then a synchronise)."""
+    from sparsefusion_tpu_torch.models import build_models
+    from sparsefusion_tpu_torch.utils.precision import set_tf32
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    models = build_models(gen, "cuda")
+    with torch.no_grad():   # a zero final conv would hide the UNet
+        models.unet.final_conv.weight.normal_(0.0, 0.05, generator=gen)
+    x = torch.randn(1, 4, 32, 32, device="cuda", generator=gen)
+    log_snr = torch.full((1,), 0.5, device="cuda")
+    cond = torch.randn(1, 256, 32, 32, device="cuda", generator=gen)
+    out, stats = {}, {}
+    for label, bf16, tf32 in (("float32", False, False),
+                              ("tf32", False, True),
+                              ("bfloat16", True, False)):
+        set_tf32(tf32)
+
+        def run(n):
+            for _ in range(n):
+                out[label] = models.denoise_fn(x, log_snr, cond, None,
+                                               bf16=bf16)
+
+        with torch.no_grad():
+            run(3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(n_evals)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / n_evals
+            per_eval, prof, _ = _profile_window(lambda: run(n_evals),
+                                                n_evals)
+        launches = sum(e.count for e in prof.key_averages()
+                       if e.key in per_eval) / n_evals
+        by_class = {}
+        for name, ms in per_eval.items():
+            by_class[_kernel_class(name)] = by_class.get(
+                _kernel_class(name), 0.0) + ms
+        device_ms = sum(per_eval.values())
+        stats[label] = {"device_ms": device_ms, "host_ms": host_ms,
+                        "kernels_per_eval": launches,
+                        "by_kernel_class": by_class}
+        print(f"UNet evaluation ({label}, batch 1): "
+              + json.dumps(stats[label]))
+        for name, ms in sorted(per_eval.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"  {ms:8.3f} ms ({100 * ms / device_ms:5.1f}%) "
+                  f"{name[:110]}")
+    set_tf32(False)
+    ref = out["float32"]
+    for label in ("tf32", "bfloat16"):
+        rel = ((out[label] - ref).norm() / ref.norm()).item()
+        stats[label]["rel_err_vs_f32"] = rel
+        print(f"UNet evaluation ({label}) against f32: relative "
+              f"(Frobenius) err {rel:.3e}")
+        assert torch.isfinite(out[label]).all() and rel <= 0.1, label
+    del models
+    torch.cuda.empty_cache()
+    return stats
+
+
+DEMO_ARGV = ["-d", "synthetic", "-c", "any", "-i", "0", "-v", "2",
+             "--image_size", "256", "--max_itr", "40", "--start_fusion",
+             "20", "--device", "cuda"]
+
+
+def _bf16_sampler_demo(exp_dir):
+    """The demo's scene loop through ``distillation_loop`` with
+    ``DistillConfig(sampler_bf16=True)`` (the JAX demo CLI has no flag for
+    it): the CLI's models, scene, views and generator."""
+    from sparsefusion_tpu_torch.cli.demo import (
+        build_trio,
+        load_dataset,
+        parse_args,
+        select_input_views,
+    )
+    from sparsefusion_tpu_torch.distill.loop import (
+        DistillConfig,
+        distillation_loop,
+    )
+
+    args = parse_args(DEMO_ARGV + ["--exp_dir", exp_dir])
+    for sub in ("log", "metrics", "render_imgs", "render_gifs"):
+        os.makedirs(os.path.join(exp_dir, sub), exist_ok=True)
+    device = torch.device("cuda")
+    models = build_trio(args, device)
+    scene = load_dataset(args, device)[0]
+    input_idx = select_input_views(args.val_seed, 0, len(scene),
+                                   args.context_views)
+    scene.sequence_name = f"any_000_c{len(input_idx)}"
+    cfg = DistillConfig(max_itr=args.max_itr,
+                        start_fusion_step=args.start_fusion,
+                        sampler_bf16=True)
+    generator = torch.Generator(device=device).manual_seed(args.val_seed)
+    return [distillation_loop(models, scene, input_idx, cfg, generator,
+                              save_dir=exp_dir)]
+
+
+def diffusion_main_path(sampler_bf16=False):
+    """The full-width diffusion demo, 40 iterations, fusion after 20:
+    through ``cli/demo.py::main``, or with ``sampler_bf16`` through
+    ``distillation_loop`` with the bf16 sampler."""
     from sparsefusion_tpu_torch.cli.demo import main as demo_main
-    from sparsefusion_tpu_torch.kernels import attention, grid_encode
 
     with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_") as exp_dir:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        grid_encode.reset_launches()
-        attention.reset_launches()
+        _reset_counts()
         t0 = time.perf_counter()
-        results = demo_main([
-            "-d", "synthetic", "-c", "any", "-i", "0", "-v", "2",
-            "--image_size", "256", "--max_itr", "40", "--start_fusion", "20",
-            "--device", "cuda", "--exp_dir", exp_dir])
+        if sampler_bf16:
+            results = _bf16_sampler_demo(exp_dir)
+        else:
+            results = demo_main(DEMO_ARGV + ["--exp_dir", exp_dir])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {
-            "grid_encode_fwd": grid_encode.grid_encode_cuda.launches,
-            "grid_encode_bwd": grid_encode.grid_encode_cuda_backward.launches,
-            "imagen_attention": attention.imagen_attention_cuda.launches}
+        launches = _read_counts()
         peak = torch.cuda.max_memory_allocated()
         written = {p: os.path.exists(os.path.join(exp_dir, p)) for p in (
             "metrics/any_000_c2.txt", "any_000_c2_ngp.npz",
@@ -712,8 +917,10 @@ def diffusion_main_path():
              "unet_evals_per_s": r["unet_evals"] / fusion_s,
              "peak_gib": peak / 2 ** 30, "wall_s": wall,
              "psnr": r["metrics"]["psnr"], "ssim": r["metrics"]["ssim"]}
-    print("diffusion main path: " + json.dumps(stats))
-    print(f"diffusion main path: launches {json.dumps(launches)}; "
+    label = "diffusion main path" + (" (bf16 sampler)" if sampler_bf16
+                                     else "")
+    print(f"{label}: " + json.dumps(stats))
+    print(f"{label}: launches {json.dumps(launches)}; "
           f"files {json.dumps(written)}")
     losses = np.asarray(r["losses"])
     fl = np.asarray(r["fusion_losses"])
@@ -724,7 +931,10 @@ def diffusion_main_path():
     assert np.isfinite(r["renders"]).all()
     assert launches["grid_encode_fwd"] > 0 and launches["grid_encode_bwd"] > 0
     assert r["unet_evals"] > 0
+    # three attention layers a forward, all at a kernel head dim (64)
     assert launches["imagen_attention"] == 3 * r["unet_evals"], launches
+    assert launches["imagen_attention_bf16"] == (
+        launches["imagen_attention"] if sampler_bf16 else 0), launches
     return launches, stats
 
 
@@ -802,13 +1012,23 @@ def _train_batch_and_draws(cfg, device):
     return prepare_scene_batch([scene], [0], [[1, 2]], device), draws
 
 
-def small_train_step_check():
+# card against CPU, per compute dtype: loss (relative), gradients
+# (relative Frobenius: f32 per parameter, bf16 over each model), Adam
+# updates (relative Frobenius where |g| >= 1e-7).  bf16 rounds in other
+# places on the two devices (cuDNN's bf16 convolutions against the CPU's),
+# and a first Adam step is about lr * sign(g), which that rounding flips
+# for small gradients
+TRAIN_TOL = {"float32": {"loss": 1e-5, "grad": 1e-3, "update": 1e-3},
+             "bfloat16": {"loss": 1e-2, "grad": 5e-2, "update": 0.5}}
+
+
+def small_train_step_check(compute_dtype="float32"):
     """One train step of the tiny models (``--preset tiny``: UNet heads of
     8, K2 at D = 8; full-width EFT; 64 px, diffusion batch 2) on the card
-    and on the CPU from the same weights, batch and draws: the losses,
-    every gradient and the parameters after the guarded Adam step.  Then
-    a NaN batch on the card: parameters bit-identical, one skipped
-    update."""
+    and on the CPU from the same weights, batch and draws, the UNet in
+    ``compute_dtype`` on both: the losses, every gradient and the
+    parameters after the guarded Adam step.  Then a NaN batch on the card:
+    parameters bit-identical, one skipped update."""
     import copy
 
     from sparsefusion_tpu_torch.cli.train import build_trio, parse_args
@@ -823,7 +1043,10 @@ def small_train_step_check():
     with torch.no_grad():   # a zero final conv would hide the UNet
         models_cpu.unet.final_conv.weight.normal_(
             0.0, 0.1, generator=torch.Generator().manual_seed(1))
-    cfg = TrainConfig(latent_size=8, context_size=2, diffusion_batch_size=2)
+    cfg = TrainConfig(latent_size=8, context_size=2, diffusion_batch_size=2,
+                      compute_dtype=compute_dtype)
+    tol = TRAIN_TOL[compute_dtype]
+    bf16 = compute_dtype == "bfloat16"
     out = {}
     for dev in ("cpu", "cuda"):
         models = copy.deepcopy(models_cpu)
@@ -843,7 +1066,10 @@ def small_train_step_check():
         out[dev] = {"losses": losses, "before": before,
                     "grads": {k: p.grad.cpu() for k, p in params.items()},
                     "after": {k: p.detach().cpu() for k, p in params.items()},
-                    "k2": attention.imagen_attention_cuda.launches}
+                    "k2": attention.imagen_attention_cuda.launches,
+                    "k2_bf16": attention.imagen_attention_cuda.launches_bf16}
+        assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+                   for p in params.values())
         if dev == "cuda":
             bad = dict(batch, query_rgb=batch["query_rgb"].clone())
             bad["query_rgb"][..., 0] = float("nan")
@@ -853,18 +1079,20 @@ def small_train_step_check():
             assert unet_opt.notfinite == eft_opt.notfinite == 1
             assert all(torch.equal(p, kept[k]) for k, p in params.items()), \
                 "a NaN batch moved the parameters"
-            print("train step on a NaN batch: no parameter moved, guard "
-                  "counts 1 / 1")
+            print(f"train step ({compute_dtype}) on a NaN batch: no "
+                  "parameter moved, guard counts 1 / 1")
     cpu, gpu = out["cpu"], out["cuda"]
     assert cpu["k2"] == 0 and gpu["k2"] == 3, (cpu["k2"], gpu["k2"])
-    print(f"tiny train step cpu vs cuda: losses {cpu['losses']} vs "
-          f"{gpu['losses']}")
+    assert gpu["k2_bf16"] == (3 if bf16 else 0), gpu["k2_bf16"]
+    print(f"tiny train step ({compute_dtype}) cpu vs cuda: losses "
+          f"{cpu['losses']} vs {gpu['losses']}")
     for a, b in zip(cpu["losses"], gpu["losses"]):
-        assert abs(a - b) <= 1e-5 * abs(a), (a, b)
+        assert abs(a - b) <= tol["loss"] * abs(a), (a, b)
     # f32 on both sides; the card's sums run in another order (cuDNN,
     # K2's 3xTF32).  A gradient that is zero but for rounding (a key bias
     # under a softmax) is held against 1e-4 of its model's gradient norm.
-    worst = {}
+    worst = {"loss": max(abs(a - b) / abs(a) for a, b in
+                         zip(cpu["losses"], gpu["losses"]) if a)}
     for model in ("unet", "eft"):
         names = [n for n in cpu["grads"] if n.startswith(model + ".")]
         g_norm = math.sqrt(sum(cpu["grads"][n].norm().item() ** 2
@@ -875,7 +1103,13 @@ def small_train_step_check():
             err = (gc - gpu["grads"][name]).norm().item()
             rel = err / max(gc.norm().item(), 1e-4 * g_norm)
             worst[f"{model}_grad"] = max(worst[f"{model}_grad"], rel)
-            assert rel <= 1e-3, f"gradient of {name} disagrees: {rel:.3e}"
+            assert bf16 or rel <= tol["grad"], \
+                f"gradient of {name} disagrees: {rel:.3e}"
+        g_c = torch.cat([cpu["grads"][n].ravel() for n in names])
+        g_g = torch.cat([gpu["grads"][n].ravel() for n in names])
+        worst[f"{model}_grad_model"] = ((g_c - g_g).norm()
+                                        / g_c.norm()).item()
+        assert worst[f"{model}_grad_model"] <= tol["grad"], model
         # the Adam step from those gradients, over the whole model.  A
         # first step moves an element by lr * g / (|g| + eps): about lr *
         # sign(g) where |g| >= 10 eps, which a gradient's rounding cannot
@@ -890,10 +1124,12 @@ def small_train_step_check():
         rel = ((up_c - up_g)[big].norm() / up_c[big].norm()).item()
         worst[f"{model}_update"] = rel
         worst[f"{model}_elements_below_1e-7"] = int((~big).sum())
-        assert rel <= 1e-3, f"{model}: Adam updates disagree: {rel:.3e}"
+        assert rel <= tol["update"], \
+            f"{model}: Adam updates disagree: {rel:.3e}"
         assert (up_c - up_g).abs().max().item() <= 2 * cfg.lr * (1 + 1e-3)
-    print("tiny train step cpu vs cuda: worst relative (Frobenius) errors "
-          + json.dumps(worst) + f" over {len(cpu['grads'])} parameters")
+    print(f"tiny train step ({compute_dtype}) cpu vs cuda: worst relative "
+          "(Frobenius) errors " + json.dumps(worst) + " over "
+          f"{len(cpu['grads'])} parameters (tolerances {json.dumps(tol)})")
     return worst
 
 
@@ -906,24 +1142,31 @@ def _reset_counts():
 
 
 def _read_counts():
+    """Launches since the last reset; ``imagen_attention`` counts both of
+    K2's instances, ``imagen_attention_bf16`` the bf16 one."""
     from sparsefusion_tpu_torch.kernels import attention, grid_encode
 
     torch.cuda.synchronize()
     return {"grid_encode_fwd": grid_encode.grid_encode_cuda.launches,
             "grid_encode_bwd": grid_encode.grid_encode_cuda_backward.launches,
-            "imagen_attention": attention.imagen_attention_cuda.launches}
+            "imagen_attention": attention.imagen_attention_cuda.launches,
+            "imagen_attention_bf16":
+                attention.imagen_attention_cuda.launches_bf16}
 
 
-def train_main_path(counts):
-    """Full-width training through the CLI: 20 steps (checkpoints at 10
-    and at the end), then --resume for 2 more steps.  ``counts``: the
-    step counts of ``sparsefusion_tpu_torch.tools.flops`` for the f32
-    bound of the drawn context sizes."""
+def train_main_path(counts, bf16=False):
+    """Full-width training through the CLI (``--bf16``: the UNet in bf16):
+    20 steps (checkpoints at 10 and at the end), then --resume for 2 more
+    steps.  ``counts``: the step counts of
+    ``sparsefusion_tpu_torch.tools.flops`` for the bound of the drawn
+    context sizes at the step's precision."""
     from sparsefusion_tpu_torch.cli.train import main as train_main
-    from sparsefusion_tpu_torch.tools.flops import step_flops
+    from sparsefusion_tpu_torch.tools.flops import step_bound_s
 
     argv = ["-d", "synthetic", "-c", "any", "--image_size", "256",
             "--save_itr", "10", "--vis_itr", "0", "--device", "cuda"]
+    argv += ["--bf16"] if bf16 else []
+    precision = "bfloat16" if bf16 else "float32"
     with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_") as exp_dir:
         argv += ["--exp_dir", exp_dir]
         torch.cuda.reset_peak_memory_stats()
@@ -941,7 +1184,7 @@ def train_main_path(counts):
 
     t = np.asarray(first["step_times"])
     sizes = first["context_sizes"][1:]
-    bound_s = sum(step_flops(counts, nc) for nc in sizes) / F32_OPS_PER_S
+    bound_s = sum(step_bound_s(counts, nc, precision) for nc in sizes)
     saves = sum(first["checkpoint_seconds"])   # the one at step 10
     stats = {"steps_per_s": 19 / (t[19] - t[0]),       # steps 2..20
              "steps_per_s_without_checkpoint": 19 / (t[19] - t[0] - saves),
@@ -957,8 +1200,9 @@ def train_main_path(counts):
              "loss_last5": float(np.mean(first["losses"][-5:])),
              "resumed_at": resumed["start_step"],
              "resumed_losses": resumed["losses"]}
-    print("train main path: " + json.dumps(stats))
-    print(f"train main path: launches {json.dumps(launches)}; resumed run "
+    label = f"train main path ({precision})"
+    print(f"{label}: " + json.dumps(stats))
+    print(f"{label}: launches {json.dumps(launches)}; resumed run "
           f"{json.dumps(launches_resumed)}")
     assert len(first["losses"]) == 20 and np.isfinite(first["losses"]).all()
     assert first["notfinite"] == {"unet": 0, "eft": 0}
@@ -967,8 +1211,12 @@ def train_main_path(counts):
     assert np.isfinite(resumed["losses"]).all()
     for run, counted in ((first, launches), (resumed, launches_resumed)):
         assert run["unet_evals"] > 0
+        # three attention layers a forward, at a kernel head dim (64)
         assert counted["imagen_attention"] == 3 * run["unet_evals"], counted
-    return launches, stats
+        assert counted["imagen_attention_bf16"] == (
+            counted["imagen_attention"] if bf16 else 0), counted
+    both = {k: launches[k] + launches_resumed[k] for k in launches}
+    return both, stats
 
 
 def _kernel_class(name):
@@ -990,25 +1238,55 @@ TRAIN_RANGES = {
     "adam": "train/adam"}
 
 
-def train_step_profile(counts, n_context=3):
+def _first_step(step, models, batch, n_context):
+    """The loss and each model's flat gradient of one step from the
+    profile's weights on fixed draws."""
+    rng = np.random.RandomState(0)
+    dbs, hw = step.cfg.diffusion_batch_size, step.cfg.latent_size
+    draws = [{"times": torch.tensor(rng.uniform(0, 0.999, dbs),
+                                    dtype=torch.float32, device="cuda"),
+              "noise": torch.tensor(rng.randn(dbs, 4, hw, hw),
+                                    dtype=torch.float32, device="cuda"),
+              "keep": torch.tensor(rng.rand(dbs) < 0.9, device="cuda")}]
+    loss = float(step(batch, draws=draws)[0])
+    grads = {name: torch.cat([p.grad.ravel() for p in m.parameters()])
+             for name, m in (("unet", models.unet), ("eft", models.eft))}
+    return loss, grads
+
+
+def train_step_profile(counts, precision="float32", reference=None,
+                       n_context=3):
     """3 full-width train steps (after 2 warm ones) under torch.profiler:
-    device ms per step by kernel class and by range, host ms per step."""
+    device ms per step by kernel class and by range, host ms per step, at
+    ``precision``: ``float32``, ``tf32`` (``set_tf32(True)`` for this
+    profile) or ``bfloat16`` (``--bf16``).  Before them, one step from
+    the same weights (final conv randomised: a zero one would give the
+    UNet no gradient) on fixed draws, whose loss and gradients are held
+    against ``reference``, the f32 card step's ``(loss, grads)``.
+    Returns (stats, the visualization's stats or None, this first step's
+    (loss, grads))."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from sparsefusion_tpu_torch.cli.train import build_trio, parse_args
     from sparsefusion_tpu_torch.core.cameras import get_relative_cameras
     from sparsefusion_tpu_torch.data.synthetic import make_synthetic_scene
-    from sparsefusion_tpu_torch.tools.flops import step_flops
+    from sparsefusion_tpu_torch.tools.flops import step_bound_s
     from sparsefusion_tpu_torch.train.trainer import (
         TrainConfig,
         make_optimizers,
         make_train_step,
         prepare_scene_batch,
     )
+    from sparsefusion_tpu_torch.utils.precision import set_tf32
 
+    set_tf32(precision == "tf32")
     models = build_trio(parse_args(["-c", "any"]), torch.device("cuda"))
-    cfg = TrainConfig()
+    with torch.no_grad():
+        models.unet.final_conv.weight.normal_(
+            0.0, 0.05, generator=torch.Generator(device="cuda").manual_seed(3))
+    cfg = TrainConfig(compute_dtype="bfloat16" if precision == "bfloat16"
+                      else "float32")
     unet_opt, eft_opt = make_optimizers(cfg, models)
     step = make_train_step(models, cfg, unet_opt, eft_opt)
     scene = make_synthetic_scene(n_views=10, image_size=256, seed=0)
@@ -1020,19 +1298,31 @@ def train_step_profile(counts, n_context=3):
         for _ in range(n):
             float(step(batch, gen)[0])
 
+    first = _first_step(step, models, batch, n_context)
+    gap = {}
+    if reference is not None:
+        gap["loss_rel"] = abs(first[0] - reference[0]) / abs(reference[0])
+        for name, g in first[1].items():
+            want = reference[1][name]
+            gap[f"{name}_grad_rel"] = ((g - want).norm()
+                                       / want.norm()).item()
+        print(f"first train step ({precision}) against the f32 card step: "
+              + json.dumps(gap))
+        assert math.isfinite(first[0])
     run(2)
     torch.cuda.synchronize()
-    _reset_counts()
-    evals0 = models.unet_evals
+    evals0 = []
+
+    def reset():
+        _reset_counts()
+        evals0[:] = [models.unet_evals]
+
     # kernels alone first (the device timeline by kernel name), then the
     # same steps with the host ops, whose device time falls into ranges
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(PROFILE_TRAIN_STEPS)
-        host_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_TRAIN_STEPS
+    per_step, _, host_ms = _profile_window(
+        lambda: run(PROFILE_TRAIN_STEPS), PROFILE_TRAIN_STEPS, reset=reset)
     launches = _read_counts()
-    unet_forwards = models.unet_evals - evals0
-    per_step = _kernel_ms(prof, PROFILE_TRAIN_STEPS)
+    unet_forwards = models.unet_evals - evals0[0]
     device_ms = sum(per_step.values())
     by_class = {}
     for name, ms in per_step.items():
@@ -1058,9 +1348,12 @@ def train_step_profile(counts, n_context=3):
             if e.name == label:
                 by_range[key] += ms
     by_range = {k: v / PROFILE_TRAIN_STEPS for k, v in by_range.items()}
-    bound_ms, bound_by = _bound(counts["adam_bytes"],
-                                step_flops(counts, n_context))
-    stats = {"context_views": n_context, "device_ms_per_step": device_ms,
+    bound_ms = max(counts["adam_bytes"] / HBM_BYTES_PER_S,
+                   step_bound_s(counts, n_context, precision)) * 1e3
+    bound_by = ("bytes" if counts["adam_bytes"] / HBM_BYTES_PER_S * 1e3
+                >= bound_ms else "operations")
+    stats = {"precision": precision, "first_step_vs_f32": gap,
+             "context_views": n_context, "device_ms_per_step": device_ms,
              "host_ms_per_step": host_ms,
              "device_idle_share": max(0.0, 1 - device_ms / host_ms),
              "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1068,20 +1361,28 @@ def train_step_profile(counts, n_context=3):
              "by_kernel_class": by_class, "by_range": by_range,
              "k2_launches_per_step": launches["imagen_attention"]
              / PROFILE_TRAIN_STEPS,
+             "k2_bf16_launches_per_step": launches["imagen_attention_bf16"]
+             / PROFILE_TRAIN_STEPS,
              "unet_forwards_per_step": unet_forwards / PROFILE_TRAIN_STEPS}
-    print(f"train step profile (mean of {PROFILE_TRAIN_STEPS} steps, "
-          f"{n_context} context views): " + json.dumps(stats))
+    print(f"train step profile ({precision}, mean of {PROFILE_TRAIN_STEPS} "
+          f"steps, {n_context} context views): " + json.dumps(stats))
     for name, ms in sorted(per_step.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {ms:8.3f} ms/step ({100 * ms / device_ms:5.1f}%) "
               f"{name[:110]}")
     assert stats["k2_launches_per_step"] == 3 * stats["unet_forwards_per_step"]
+    assert stats["k2_bf16_launches_per_step"] == (
+        stats["k2_launches_per_step"] if precision == "bfloat16" else 0)
     assert by_class.get("k2_forward", 0) > 0
 
-    # the full-width visualization grid, called directly
-    rel = get_relative_cameras(scene.cameras(), [0])
-    vis = visualization_check(models, rel, scene)
+    vis = None
+    if precision == "float32":
+        # the full-width visualization grid, called directly
+        rel = get_relative_cameras(scene.cameras(), [0])
+        vis = visualization_check(models, rel, scene)
+    set_tf32(False)
     del models, step, unet_opt, eft_opt
-    return stats, vis
+    torch.cuda.empty_cache()
+    return stats, vis, first
 
 
 def visualization_check(models, rel, scene):
@@ -1111,6 +1412,33 @@ def visualization_check(models, rel, scene):
     return stats
 
 
+def _k2_entry(name, source, attn_err, attn_times, by_path, profile):
+    """One of K2's instances in the kernels line."""
+    # K2 at the UNet's down_3/up_0 shape (19 keys): the demo's batch of 1
+    # and the train step's diffusion batch of 12
+    ta = attn_times["q(1,8,16,64)_J19"]
+    tt = attn_times["q(12,8,16,64)_J19"]
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": "sparsefusion_tpu/kernels/attention.py:70",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": attn_err, "ms": ta["ms"],
+        "event_ms": ta["event_ms"], "plain_ms": ta["plain_ms"],
+        "bound_ms": ta["bound_ms"], "bound_by": ta["bound_by"],
+        "library_ms": ta["library_ms"],
+        "library_backend": ta["library_backend"],
+        "train_shape": {key: tt[key] for key in (
+            "ms", "plain_ms", "library_ms", "library_backend", "bound_ms",
+            "bound_by", "plain_backward_ms")},
+        "train_step_ms_per_step": profile["by_kernel_class"]["k2_forward"],
+        "train_step_plain_backward_ms_per_step": profile["by_range"][
+            "k2_plain_backward"],
+        "shapes": {shape: {key: t[key] for key in (
+            "ms", "plain_ms", "library_ms", "library_backend", "bound_ms",
+            "bound_by", "plain_backward_ms", "max_abs_err")}
+            for shape, t in attn_times.items()}}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -1125,7 +1453,9 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from sparsefusion_tpu_torch.kernels import _build
+    from sparsefusion_tpu_torch.utils.precision import set_tf32
 
+    set_tf32(False)
     if args.csrc is not None:
         _build.CSRC = pathlib.Path(args.csrc).resolve()
     _device_lines()
@@ -1137,41 +1467,72 @@ def main(argv=None) -> int:
     print("sass opcode counts: " + json.dumps(sass))
 
     errs, times = kernel_phase()
-    attn_err, attn_times = attention_phase()
+    attn_err, attn_times = attention_phase(torch.float32)
+    bf16_err, bf16_times = attention_phase(torch.bfloat16)
     step_stats = input_step_profile()
     if args.kernels_only:
         print(json.dumps({"kernel_times": times, "attention": attn_times,
+                          "attention_bf16": bf16_times,
                           "input_step": step_stats}))
         return 0
-    assert any(c["HMMA"] > 0 for f, c in sass.items()
-               if "imagen_attention" in f), "K2 issues no HMMA"
+    for instance in ("imagen_attention_fwd", "imagen_attention_bf16_fwd"):
+        assert any(c["HMMA"] > 0 for f, c in sass.items()
+                   if instance in f), f"K2's {instance} issues no HMMA"
     small_input_step_check()
     small_diffusion_steps_check()
+    small_diffusion_steps_check(sampler_bf16=True)
     ngp_launches, _ = main_path()
     launches, _ = diffusion_main_path()
+    bf16_launches, _ = diffusion_main_path(sampler_bf16=True)
+    unet_eval_profile()
     small_train_step_check()
+    small_train_step_check("bfloat16")
     from sparsefusion_tpu_torch.tools.flops import train_step_counts
 
     counts = train_step_counts()
     train_launches, _ = train_main_path(counts)
-    train_profile, _ = train_step_profile(counts)
-    by_path = {name: {"ngp_demo": ngp_launches.get(name, 0),
-                      "diffusion_demo": launches[name],
-                      "train": train_launches[name]} for name in launches}
+    bf16_train_launches, _ = train_main_path(counts, bf16=True)
+    profiles = {}
+    reference = None
+    for precision in ("float32", "tf32", "bfloat16"):
+        profiles[precision], _, first = train_step_profile(
+            counts, precision, reference)
+        if reference is None:
+            reference = first
+    del reference
+    print("train step profiles: " + json.dumps({
+        p: {key: s[key] for key in ("device_ms_per_step", "host_ms_per_step",
+                                    "bound_ms", "bound_share",
+                                    "first_step_vs_f32")}
+        for p, s in profiles.items()}))
+    paths = {"ngp_demo": {"grid_encode_fwd": ngp_launches["grid_encode_fwd"],
+                          "grid_encode_bwd": ngp_launches["grid_encode_bwd"]},
+             "diffusion_demo": launches, "train": train_launches,
+             "diffusion_demo_bf16_sampler": bf16_launches,
+             "train_bf16": bf16_train_launches}
+
+    def by_path(name, bf16=None):
+        out = {}
+        for path, counted in paths.items():
+            n = counted.get(name, 0)
+            if bf16 is not None:
+                n_bf16 = counted.get("imagen_attention_bf16", 0)
+                n = n_bf16 if bf16 else n - n_bf16
+            out[path] = n
+        return out
 
     t = times["ngp_16xC2_f32"]
     tr = times["ngp_16xC2_f32_rays"]
     tu = times["ngp_16xC2_f32_uniform_chunk"]
-    # K2 at the UNet's down_3/up_0 shape (19 keys): the demo's batch of
-    # 1 and the train step's diffusion batch of 12
-    ta = attn_times["q(1,8,16,64)_J19"]
-    tt = attn_times["q(12,8,16,64)_J19"]
     src = "sparsefusion_tpu_torch/csrc/grid_encode.cu"
+    k2_src = "sparsefusion_tpu_torch/csrc/imagen_attention.cu"
+    fwd_paths, bwd_paths = (by_path("grid_encode_fwd"),
+                            by_path("grid_encode_bwd"))
     kernels = [
         {"name": "grid_encode_fwd", "route": "cuda", "source": src,
          "replaces": "sparsefusion_tpu/kernels/grid_gather.py:79",
-         "launches": sum(by_path["grid_encode_fwd"].values()),
-         "launches_by_path": by_path["grid_encode_fwd"],
+         "launches": sum(fwd_paths.values()),
+         "launches_by_path": fwd_paths,
          "max_abs_err": errs["fwd"], "ms": t["fwd_ms"],
          "event_ms": t["fwd_event_ms"], "plain_ms": t["fwd_plain_ms"],
          "bound_ms": t["fwd_bound_ms"], "bound_by": "bytes",
@@ -1182,36 +1543,24 @@ def main(argv=None) -> int:
          "warp_sectors_uniform_chunk": tu["fwd_warp_sectors"]},
         {"name": "grid_encode_bwd", "route": "cuda", "source": src,
          "replaces": "sparsefusion_tpu/kernels/grid_gather.py:133",
-         "launches": sum(by_path["grid_encode_bwd"].values()),
-         "launches_by_path": by_path["grid_encode_bwd"],
+         "launches": sum(bwd_paths.values()),
+         "launches_by_path": bwd_paths,
          "max_abs_err": errs["bwd"], "ms": t["bwd_ms"],
          "event_ms": t["bwd_event_ms"], "plain_ms": t["bwd_plain_ms"],
          "bound_ms": t["bwd_bound_ms"], "bound_by": "bytes",
          "library_ms": None, "bwd_ms_ray_points": tr["bwd_ms"],
          "bound_ms_ray_points": tr["bwd_bound_ms"],
          "bwd_ms_one_point": times["ngp_16xC2_f32_one_point"]["bwd_ms"]},
-        {"name": "imagen_attention", "route": "cuda",
-         "source": "sparsefusion_tpu_torch/csrc/imagen_attention.cu",
-         "replaces": "sparsefusion_tpu/kernels/attention.py:70",
-         "launches": sum(by_path["imagen_attention"].values()),
-         "launches_by_path": by_path["imagen_attention"],
-         "max_abs_err": attn_err, "ms": ta["ms"],
-         "event_ms": ta["event_ms"], "plain_ms": ta["plain_ms"],
-         "bound_ms": ta["bound_ms"], "bound_by": ta["bound_by"],
-         "library_ms": ta["library_ms"],
-         "library_backend": ta["library_backend"],
-         "train_shape": {key: tt[key] for key in (
-             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-             "plain_backward_ms")},
-         "train_step_ms_per_step": train_profile["by_kernel_class"][
-             "k2_forward"],
-         "train_step_plain_backward_ms_per_step": train_profile[
-             "by_range"]["k2_plain_backward"],
-         "shapes": {name: {key: s[key] for key in (
-             "ms", "plain_ms", "library_ms", "bound_ms", "plain_backward_ms")}
-             for name, s in attn_times.items()}},
+        _k2_entry("imagen_attention", k2_src, attn_err, attn_times,
+                  by_path("imagen_attention", bf16=False),
+                  profiles["float32"]),
+        _k2_entry("imagen_attention_bf16", k2_src, bf16_err, bf16_times,
+                  by_path("imagen_attention", bf16=True),
+                  profiles["bfloat16"]),
     ]
     assert all(math.isfinite(k["ms"]) for k in kernels)
+    assert all(k["launches"] > 0 for k in kernels), \
+        [(k["name"], k["launches"]) for k in kernels]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

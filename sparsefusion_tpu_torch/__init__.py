@@ -24,17 +24,11 @@ Layout:
     train/     the train step, checkpoints, visualization, import of
                reference checkpoints
     parallel/  torch.distributed start-up and scene sharding
+    utils/     images, metrics, and ``set_tf32`` (the entry points keep
+               f32 matmuls and convolutions out of TF32; importing the
+               package changes no torch setting)
     models.py  the EFT / VAE / UNet bundle
     cli/       demo and train front-ends (argparse-compatible with the
                JAX package)
 """
-import torch
-
-# The JAX reference computes float32 matmuls in full float32.  On the
-# card, cuDNN convolutions default to TF32 (about three decimal digits),
-# and a TF32 matmul would do the same; both are turned off so the port
-# is numerically comparable with the reference.
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-
 __version__ = "0.1.0"

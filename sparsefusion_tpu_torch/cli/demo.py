@@ -17,6 +17,13 @@ LPIPS, ``--preset tpu`` and ``--scene_batch > 1`` raise
 ``NotImplementedError`` naming their ROADMAP item; ``--no_fused`` and
 ``-g`` / ``-p`` are accepted and change nothing.  With ``--device cuda``
 and no CUDA device the demo raises; it never continues on the CPU.
+
+Several processes (``SF_COORDINATOR`` / ``SF_NUM_PROCESSES`` /
+``SF_PROCESS_ID``, or ``SF_DISTRIBUTED=1``: ``parallel/mesh.py``) split
+``-i``'s scenes among themselves as the JAX demo does
+(``shard_scene_list``): each process distills its own share.  f32
+matmuls and convolutions run in full f32 (TF32 off,
+``utils/precision.py``).
 """
 from __future__ import annotations
 
@@ -164,7 +171,16 @@ def main(argv=None):
         distillation_loop,
     )
 
+    from sparsefusion_tpu_torch.parallel.mesh import (
+        maybe_init_distributed,
+        process_device,
+        rank_and_world,
+        shard_scene_list,
+    )
+    from sparsefusion_tpu_torch.utils.precision import set_tf32
+
     check_args(args)
+    set_tf32(False)
     device = resolve_device(args.device)
     if args.lpips_weights is not None:
         raise NotImplementedError(NOT_PORTED_LPIPS)
@@ -174,6 +190,14 @@ def main(argv=None):
         raise NotImplementedError(
             "scene batches (distill/batched.py) are not ported yet: "
             "ROADMAP.md section 1, item 13")
+
+    maybe_init_distributed(device.type)
+    rank, world = rank_and_world()
+    device = process_device(device)
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+    val_list = shard_scene_list(args.val_list, world, rank)
+    print(f"process {rank}: assigned idx {val_list}")
 
     os.makedirs(args.exp_dir, exist_ok=True)
     for sub in ("log", "metrics", "render_imgs", "render_gifs"):
@@ -185,7 +209,7 @@ def main(argv=None):
                         start_fusion_step=args.start_fusion)
 
     results = []
-    for val_idx in args.val_list:
+    for val_idx in val_list:
         scene = dataset[val_idx]
         input_idx = select_input_views(args.val_seed, val_idx, len(scene),
                                        args.context_views)

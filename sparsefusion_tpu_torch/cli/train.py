@@ -13,9 +13,12 @@ the JAX CLI does; the step's own draws come from a ``torch.Generator``
 seeded ``1234 + rank``.  Rank 0 logs every 50 steps, writes a
 visualization grid every ``--vis_itr`` steps and the checkpoint
 ``ckpt_latest`` every ``--save_itr`` steps and at the end; ``--resume``
-continues from one, random states included.  ``--bf16`` raises
-``NotImplementedError`` (ROADMAP item 10a).  With ``--device cuda`` and no
-CUDA device the CLI raises; it never continues on the CPU.
+continues from one, random states included.  ``--bf16`` runs the UNet in
+bf16 on f32 master parameters (``TrainConfig.compute_dtype``); the
+visualization samples with the f32 UNet, as the JAX CLI's.  f32 matmuls
+and convolutions run in full f32 (TF32 off, ``utils/precision.py``).
+With ``--device cuda`` and no CUDA device the CLI raises; it never
+continues on the CPU.
 """
 from __future__ import annotations
 
@@ -54,7 +57,8 @@ def parse_args(argv=None):
                    choices=["sf", "tiny"],
                    help="'tiny' swaps in small model configs (smoke tests)")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 UNet activations (not ported yet)")
+                   help="bfloat16 UNet activations in the train step "
+                        "(params, optimizer state and loss stay f32)")
     p.add_argument("--debug_nans", action="store_true",
                    help="torch.autograd.set_detect_anomaly: raise at the "
                         "backward op that produced a NaN")
@@ -144,16 +148,15 @@ def main(argv=None):
         save_checkpoint,
     )
     from sparsefusion_tpu_torch.train.trainer import (
-        NOT_PORTED_BF16,
         TrainConfig,
         make_optimizers,
         make_train_step,
         notfinite_count,
         prepare_scene_batch,
     )
+    from sparsefusion_tpu_torch.utils.precision import set_tf32
 
-    if args.bf16:
-        raise NotImplementedError(NOT_PORTED_BF16)
+    set_tf32(False)
     device = resolve_device(args.device)
     maybe_init_distributed(device.type)
     rank, world = rank_and_world()
@@ -179,7 +182,9 @@ def main(argv=None):
     cfg = TrainConfig(lr=args.lr, context_size=max(context_sizes),
                       diffusion_batch_size=args.diffusion_batch_size,
                       train_eft=args.train_eft,
-                      latent_size=args.image_size // 8)
+                      latent_size=args.image_size // 8,
+                      compute_dtype="bfloat16" if args.bf16
+                      else "float32")
     unet_opt, eft_opt = make_optimizers(cfg, models)
     host = np.random.RandomState(rank)
     generator = torch.Generator(device=device).manual_seed(1234 + rank)

@@ -17,10 +17,12 @@ Counterpart of ``sparsefusion_tpu/distill/loop.py``:
 
 The fusion step renders once and feeds a detached copy to the VAE; the
 JAX package renders twice with one key, which gives the same image, loss
-and gradients.  Occupancy-guided sampling, LPIPS, the TPU preset's
-subsampled fusion step (``fusion_rays``) and the bf16 sampler
-(``sampler_bf16``) are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP item.  Options that only shaped the JAX package's
+and gradients.  ``sampler_bf16`` runs the sampler's UNet in bf16 on a
+bf16 copy of its weights (``models.py::SparseFusionModels.unet_half``);
+the sampler's own arithmetic, the VAE and the EFT stay f32, as in the JAX
+package.  Occupancy-guided sampling, LPIPS and the TPU preset's
+subsampled fusion step (``fusion_rays``) are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.  Options that only shaped the JAX package's
 dispatch (``fused_steps``, ``plms_host_loop``, ``plms_scan_tail``,
 ``loss_fetch_every``) are accepted and ignored: the port runs eagerly
 and reads the losses every iteration.
@@ -28,6 +30,7 @@ and reads the losses every iteration.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -69,9 +72,6 @@ NOT_PORTED_LPIPS = "LPIPS is not ported yet: ROADMAP.md section 1, item 10"
 NOT_PORTED_FUSION_RAYS = (
     "the subsampled fusion step (fusion_rays, part of the TPU preset) is "
     "not ported yet: ROADMAP.md section 1, head of the queue")
-NOT_PORTED_SAMPLER_BF16 = (
-    "the bf16 sampler UNet (sampler_bf16) is not ported yet: ROADMAP.md "
-    "section 1, item 10a")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -336,7 +336,9 @@ class SceneSteps:
         models, cfg = self.models, self.cfg
         latents = models.vae_encode(img[None])
         pred_x0, _, _, alpha_cumprod = plms_sample(
-            models.ddpm, models.denoise_fn, latents, max_thres,
+            models.ddpm, functools.partial(models.denoise_fn,
+                                           bf16=cfg.sampler_bf16),
+            latents, max_thres,
             cond_images=features[None], cond_scale=cfg.cond_scale,
             plms_steps=cfg.plms_steps, generator=generator,
             noises=plms_noise)
@@ -442,8 +444,6 @@ def distillation_loop(
         raise NotImplementedError(NOT_PORTED_LPIPS)
     if use_diffusion and cfg.fusion_rays:
         raise NotImplementedError(NOT_PORTED_FUSION_RAYS)
-    if use_diffusion and cfg.sampler_bf16:
-        raise NotImplementedError(NOT_PORTED_SAMPLER_BF16)
     if use_diffusion and models is None:
         raise ValueError("the diffusion arm needs the EFT/VAE/UNet models")
     device = generator.device

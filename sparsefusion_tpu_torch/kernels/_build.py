@@ -143,9 +143,10 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp, i32, vp, i64, i32, i32, vp, vp, vp, vp, vp]
         fn.restype = i32
-    fn = lib.sf_imagen_attention_fwd
-    fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
-    fn.restype = i32
+    for name in ("sf_imagen_attention_fwd", "sf_imagen_attention_fwd_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
+        fn.restype = i32
     return lib
 
 

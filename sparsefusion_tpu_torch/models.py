@@ -22,6 +22,33 @@ from sparsefusion_tpu_torch.nn.vae import AutoencoderKL, VAEConfig
 Z_SCALE_FACTOR = 0.18215  # the SD latent scale
 
 
+def unet_half(unet: EfficientUNet) -> EfficientUNet:
+    """A bf16 copy of ``unet``: bf16 weights, cast on their device, bf16
+    compute, f32 output; in eval mode, without gradients."""
+    with torch.device("meta"):
+        half = EfficientUNet(unet.config, dtype=torch.bfloat16)
+    device = next(unet.parameters()).device
+    half = half.to(torch.bfloat16).to_empty(device=device)
+    half.load_state_dict(unet.state_dict())
+    return half.eval().requires_grad_(False)
+
+
+def unet_compute_view(unet: EfficientUNet,
+                      dtype: torch.dtype) -> EfficientUNet:
+    """``unet``'s network computing in ``dtype`` on ``unet``'s own
+    parameters (the same tensors, not copies): gradients through it reach
+    ``unet``'s f32 parameters as f32, through the casts."""
+    with torch.device("meta"):
+        view = EfficientUNet(unet.config, dtype=dtype)
+    for name, module in view.named_modules():
+        src = unet.get_submodule(name)
+        for pname, _ in list(module.named_parameters(recurse=False)):
+            setattr(module, pname, getattr(src, pname))
+        for bname, _ in list(module.named_buffers(recurse=False)):
+            setattr(module, bname, getattr(src, bname))
+    return view.train(unet.training)
+
+
 @dataclasses.dataclass
 class SparseFusionModels:
     eft: EpipolarFeatureTransformer
@@ -31,12 +58,33 @@ class SparseFusionModels:
     z_scale_factor: float = Z_SCALE_FACTOR
     # UNet evaluations since construction (each is one forward pass)
     unet_evals: int = 0
+    # the sampler's bf16 copy of the UNet and the key it was made under
+    _half: Optional[EfficientUNet] = dataclasses.field(default=None,
+                                                       repr=False)
+    _half_key: Optional[tuple] = dataclasses.field(default=None, repr=False)
 
-    def denoise_fn(self, x, log_snr, cond_images, keep_mask):
+    def denoise_fn(self, x, log_snr, cond_images, keep_mask, bf16=False):
         """eps prediction: latents (B, 4, h, w), log_snr (B,), EFT
-        features (B, 256, h, w), keep mask (B,) or None."""
+        features (B, 256, h, w), keep mask (B,) or None.  ``bf16``: through
+        :meth:`unet_half` (no gradient), as the JAX package's
+        ``unet_apply_fn(bf16=True)`` with ``sampler_unet_params(True)``."""
         self.unet_evals += 1
-        return self.unet(x, log_snr, cond_images, keep_mask)
+        unet = self.unet_half() if bf16 else self.unet
+        return unet(x, log_snr, cond_images, keep_mask)
+
+    def unet_half(self) -> EfficientUNet:
+        """The sampler's bf16 copy of the UNet, cast once on the device
+        and cached.  The cache is keyed on the UNet and its parameters'
+        version counters, which every in-place write bumps (a checkpoint
+        or reference-weight load, an optimizer step), so a load makes a
+        new copy."""
+        key = (id(self.unet),) + tuple(p._version
+                                       for p in self.unet.parameters())
+        if self._half is None or self._half_key != key:
+            self._half = None   # free the old copy before the new one
+            self._half = unet_half(self.unet)
+            self._half_key = key
+        return self._half
 
     def vae_encode(self, images_01: torch.Tensor) -> torch.Tensor:
         """[0, 1] RGB (B, H, W, 3) -> scaled latents (B, 4, H/8, W/8)."""

@@ -7,10 +7,17 @@ the reference torch layout (imagen_pytorch) that the JAX converters read
 ``load_state_dict``: e.g. the reference wraps attention in an einops
 rearrange module, hence the ``.fn`` level of :class:`Fn`.
 
-Token modules take (B, N, C); convolutional ones NCHW.  Everything runs
-in f32.  :class:`Attention` calls kernel K2 on a CUDA tensor
-(``kernels/attention.py``); the multi-head :class:`CrossAttention` is a
-plain einsum, as in the JAX package.
+Token modules take (B, N, C); convolutional ones NCHW.  Parameters are
+f32 (or a cast copy); every module runs in a compute dtype, flax's
+``dtype=``: :class:`Linear` and :class:`Conv2d` cast their input and their
+weight read to it, the gamma LayerNorms compute in f32 and return it
+(eps 1e-3 outside f32), :class:`GroupNormF32` and :class:`LayerNormF32`
+compute in f32 and return f32, as the JAX modules with
+``dtype=jnp.float32``.  :func:`set_compute_dtype` sets it on a module
+tree; f32 is the default, and there every cast is a no-op.
+:class:`Attention` calls kernel K2 (``kernels/attention.py``); the
+multi-head :class:`CrossAttention` is a plain einsum, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -24,6 +31,57 @@ from torch import nn
 from sparsefusion_tpu_torch.kernels.attention import imagen_attention
 
 
+class _Compute:
+    """Mixin: the module's compute dtype (a class default, set per
+    instance by :func:`set_compute_dtype`)."""
+
+    compute_dtype: torch.dtype = torch.float32
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Set the compute dtype of every module of ``module`` that has one."""
+    for m in module.modules():
+        if isinstance(m, _Compute):
+            m.compute_dtype = dtype
+    return module
+
+
+class Linear(_Compute, nn.Linear):
+    """``nn.Linear`` with its input, weight and bias cast to the compute
+    dtype (flax ``nn.Dense(dtype=...)``)."""
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class Conv2d(_Compute, nn.Conv2d):
+    """``nn.Conv2d`` with its input, weight and bias cast to the compute
+    dtype (flax ``nn.Conv(dtype=...)``)."""
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class LayerNormF32(nn.LayerNorm):
+    """``nn.LayerNorm`` (with bias) computed and returned in f32."""
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(), self.eps)
+
+
+class GroupNormF32(nn.GroupNorm):
+    """``nn.GroupNorm`` computed and returned in f32."""
+
+    def forward(self, x):
+        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                            self.bias.float(), self.eps)
+
+
 class Fn(nn.Module):
     """Holds ``fn``: the level the reference's einops wrappers add to the
     key layout (``...cross_attn.fn.to_q``, ``mid_attn.fn.fn.to_q``)."""
@@ -33,26 +91,28 @@ class Fn(nn.Module):
         self.fn = fn
 
 
-def _gamma_norm(x: torch.Tensor, g: torch.Tensor, dim: int) -> torch.Tensor:
+def _gamma_norm(x: torch.Tensor, g: torch.Tensor, dim: int,
+                out_dtype: torch.dtype) -> torch.Tensor:
     eps = 1e-5 if x.dtype == torch.float32 else 1e-3
     xf = x.float()
     var = xf.var(dim=dim, unbiased=False, keepdim=True)
     mean = xf.mean(dim=dim, keepdim=True)
-    return ((xf - mean) * torch.rsqrt(var + eps) * g).to(x.dtype)
+    return ((xf - mean) * torch.rsqrt(var + eps) * g.float()).to(out_dtype)
 
 
-class LayerNorm(nn.Module):
-    """Gamma-only LayerNorm over the last axis (eps 1e-5 in f32)."""
+class LayerNorm(_Compute, nn.Module):
+    """Gamma-only LayerNorm over the last axis, in f32 (eps 1e-5 on an f32
+    input, 1e-3 otherwise), returned in the compute dtype."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.g = nn.Parameter(torch.ones(dim))
 
     def forward(self, x):
-        return _gamma_norm(x, self.g, -1)
+        return _gamma_norm(x, self.g, -1, self.compute_dtype)
 
 
-class ChanLayerNorm(nn.Module):
+class ChanLayerNorm(_Compute, nn.Module):
     """Gamma-only LayerNorm over the channels of an NCHW tensor."""
 
     def __init__(self, dim: int):
@@ -60,7 +120,7 @@ class ChanLayerNorm(nn.Module):
         self.g = nn.Parameter(torch.ones(1, dim, 1, 1))
 
     def forward(self, x):
-        return _gamma_norm(x, self.g, 1)
+        return _gamma_norm(x, self.g, 1, self.compute_dtype)
 
 
 class LearnedSinusoidalPosEmb(nn.Module):
@@ -87,15 +147,14 @@ class Attention(nn.Module):
         self.dim_head = dim_head
         inner = dim_head * heads
         self.norm = LayerNorm(dim)
-        self.to_q = nn.Linear(dim, inner, bias=False)
-        self.to_kv = nn.Linear(dim, 2 * dim_head, bias=False)
+        self.to_q = Linear(dim, inner, bias=False)
+        self.to_kv = Linear(dim, 2 * dim_head, bias=False)
         self.null_kv = nn.Parameter(torch.randn(2, dim_head))
         if context_dim is not None:
-            # a standard LayerNorm, with bias
+            # a standard LayerNorm, with bias, in f32
             self.to_context = nn.Sequential(
-                nn.LayerNorm(context_dim), nn.Linear(context_dim,
-                                                     2 * dim_head))
-        self.to_out = nn.Sequential(nn.Linear(inner, dim, bias=False),
+                LayerNormF32(context_dim), Linear(context_dim, 2 * dim_head))
+        self.to_out = nn.Sequential(Linear(inner, dim, bias=False),
                                     LayerNorm(dim))
 
     def forward(self, x, context=None):
@@ -129,10 +188,10 @@ class CrossAttention(nn.Module):
         self.dim_head = dim_head
         inner = dim_head * heads
         self.norm = LayerNorm(dim)
-        self.to_q = nn.Linear(dim, inner, bias=False)
-        self.to_kv = nn.Linear(context_dim, 2 * inner, bias=False)
+        self.to_q = Linear(dim, inner, bias=False)
+        self.to_kv = Linear(context_dim, 2 * inner, bias=False)
         self.null_kv = nn.Parameter(torch.randn(2, dim_head))
-        self.to_out = nn.Sequential(nn.Linear(inner, dim, bias=False),
+        self.to_out = nn.Sequential(Linear(inner, dim, bias=False),
                                     LayerNorm(dim))
 
     def forward(self, x, context):
@@ -142,8 +201,12 @@ class CrossAttention(nn.Module):
         k, v = self.to_kv(context).chunk(2, dim=-1)
         k = k.reshape(b, -1, h, d)
         v = v.reshape(b, -1, h, d)
-        k = torch.cat([self.null_kv[0].expand(b, 1, h, d), k], dim=1)
-        v = torch.cat([self.null_kv[1].expand(b, 1, h, d), v], dim=1)
+        k = torch.cat([self.null_kv[0].expand(b, 1, h, d).to(k.dtype), k],
+                      dim=1)
+        v = torch.cat([self.null_kv[1].expand(b, 1, h, d).to(v.dtype), v],
+                      dim=1)
+        # the logits in the compute dtype (rounded in bf16, as the JAX
+        # einsum's), the softmax in f32
         sim = torch.einsum("bnhd,bjhd->bhnj", q * d ** -0.5, k)
         attn = torch.softmax(sim.float(), dim=-1).to(v.dtype)
         out = torch.einsum("bhnj,bjhd->bnhd", attn, v).reshape(b, n, h * d)
@@ -154,10 +217,10 @@ def chan_feed_forward(dim: int, mult: float = 2.0) -> nn.Sequential:
     """1x1-conv feed-forward on NCHW tensors (exact GELU)."""
     hidden = int(dim * mult)
     return nn.Sequential(ChanLayerNorm(dim),
-                         nn.Conv2d(dim, hidden, 1, bias=False),
+                         Conv2d(dim, hidden, 1, bias=False),
                          nn.GELU(),
                          ChanLayerNorm(hidden),
-                         nn.Conv2d(hidden, dim, 1, bias=False))
+                         Conv2d(hidden, dim, 1, bias=False))
 
 
 class TransformerBlock(nn.Module):
@@ -182,29 +245,33 @@ class TransformerBlock(nn.Module):
         return x
 
 
-class GlobalContext(nn.Module):
+class GlobalContext(_Compute, nn.Module):
     """Squeeze-excite-style gate: attention-pooled channels -> sigmoid."""
 
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
         hidden = max(3, dim_out // 2)
-        self.to_k = nn.Conv2d(dim_in, 1, 1)
-        self.net = nn.Sequential(nn.Conv2d(dim_in, hidden, 1), nn.SiLU(),
-                                 nn.Conv2d(hidden, dim_out, 1), nn.Sigmoid())
+        self.to_k = Conv2d(dim_in, 1, 1)
+        self.net = nn.Sequential(Conv2d(dim_in, hidden, 1), nn.SiLU(),
+                                 Conv2d(hidden, dim_out, 1), nn.Sigmoid())
 
     def forward(self, x):
+        dt = self.compute_dtype
         attn = torch.softmax(self.to_k(x).flatten(2).float(), dim=-1)
-        pooled = torch.einsum("bkn,bcn->bck", attn.to(x.dtype), x.flatten(2))
+        pooled = torch.einsum("bkn,bcn->bck", attn.to(dt),
+                              x.flatten(2).to(dt))
         return self.net(pooled[..., None])
 
 
 class Block(nn.Module):
-    """GroupNorm -> (FiLM) -> SiLU -> 3x3 conv."""
+    """GroupNorm -> (FiLM) -> SiLU -> 3x3 conv: the norm in f32, FiLM and
+    SiLU in the promoted type (f32 against a bf16 scale and shift), the
+    conv in the compute dtype."""
 
     def __init__(self, dim: int, dim_out: int, groups: int = 8):
         super().__init__()
-        self.groupnorm = nn.GroupNorm(groups, dim, eps=1e-5)
-        self.project = nn.Conv2d(dim, dim_out, 3, padding=1)
+        self.groupnorm = GroupNormF32(groups, dim, eps=1e-5)
+        self.project = Conv2d(dim, dim_out, 3, padding=1)
 
     def forward(self, x, scale_shift=None):
         x = self.groupnorm(x)
@@ -226,7 +293,7 @@ class ResnetBlock(nn.Module):
         self.time_mlp = None
         if time_cond_dim is not None:
             self.time_mlp = nn.Sequential(
-                nn.SiLU(), nn.Linear(time_cond_dim, dim_out * 2))
+                nn.SiLU(), Linear(time_cond_dim, dim_out * 2))
         self.cross_attn = None
         if cond_dim is not None:
             self.cross_attn = Fn(CrossAttention(dim_out, cond_dim,
@@ -234,7 +301,7 @@ class ResnetBlock(nn.Module):
         self.block1 = Block(dim, dim_out, groups)
         self.block2 = Block(dim_out, dim_out, groups)
         self.gca = GlobalContext(dim_out, dim_out) if use_gca else None
-        self.res_conv = (nn.Conv2d(dim, dim_out, 1) if dim != dim_out
+        self.res_conv = (Conv2d(dim, dim_out, 1) if dim != dim_out
                          else nn.Identity())
 
     def forward(self, x, time_emb=None, cond=None):
@@ -266,16 +333,16 @@ class CrossEmbedLayer(nn.Module):
                       for i in range(1, len(kernel_sizes))]
         dim_scales.append(dim_out - sum(dim_scales))
         self.convs = nn.ModuleList([
-            nn.Conv2d(dim_in, d, k, stride=stride, padding=(k - stride) // 2)
+            Conv2d(dim_in, d, k, stride=stride, padding=(k - stride) // 2)
             for k, d in zip(kernel_sizes, dim_scales)])
 
     def forward(self, x):
         return torch.cat([conv(x) for conv in self.convs], dim=1)
 
 
-def downsample(dim: int, dim_out: int) -> nn.Conv2d:
+def downsample(dim: int, dim_out: int) -> Conv2d:
     """4x4 stride-2 conv."""
-    return nn.Conv2d(dim, dim_out, 4, stride=2, padding=1)
+    return Conv2d(dim, dim_out, 4, stride=2, padding=1)
 
 
 class ParallelConvs(nn.Module):
@@ -283,8 +350,8 @@ class ParallelConvs(nn.Module):
 
     def __init__(self, dim: int, dim_out: int):
         super().__init__()
-        self.fns = nn.ModuleList([nn.Conv2d(dim, dim_out, 3, padding=1),
-                                  nn.Conv2d(dim, dim_out, 1)])
+        self.fns = nn.ModuleList([Conv2d(dim, dim_out, 3, padding=1),
+                                  Conv2d(dim, dim_out, 1)])
 
     def forward(self, x):
         return self.fns[0](x) + self.fns[1](x)
@@ -295,7 +362,7 @@ class PixelShuffleUpsample(nn.Module):
 
     def __init__(self, dim: int, dim_out: int):
         super().__init__()
-        self.net = nn.Sequential(nn.Conv2d(dim, dim_out * 4, 1), nn.SiLU(),
+        self.net = nn.Sequential(Conv2d(dim, dim_out * 4, 1), nn.SiLU(),
                                  nn.PixelShuffle(2))
 
     def forward(self, x):

@@ -10,7 +10,9 @@ called with the log-SNR as its time signal.
 
 Module names are those of the reference's ``unets.0.*`` state dict, so a
 VLDM checkpoint loads with ``load_state_dict``; :func:`load_jax_params`
-fills the modules from the JAX package's parameter tree.
+fills the modules from the JAX package's parameter tree.  The network
+computes in f32 or bf16 (``EfficientUNet(dtype=...)``), as the JAX module
+with ``dtype=jnp.bfloat16``.
 """
 from __future__ import annotations
 
@@ -27,14 +29,18 @@ from sparsefusion_tpu_torch.nn.flax_layout import (
 )
 from sparsefusion_tpu_torch.nn.layers import (
     Attention,
+    Conv2d,
     CrossEmbedLayer,
     Fn,
+    LayerNormF32,
     LearnedSinusoidalPosEmb,
+    Linear,
     ParallelConvs,
     PixelShuffleUpsample,
     ResnetBlock,
     TransformerBlock,
     downsample,
+    set_compute_dtype,
 )
 
 
@@ -73,9 +79,17 @@ class UNetConfig:
 
 
 class EfficientUNet(nn.Module):
-    """Latent UNet: x (B, C, h, w), log_snr (B,), cond (B, Cc, h', w')."""
+    """Latent UNet: x (B, C, h, w), log_snr (B,), cond (B, Cc, h', w').
 
-    def __init__(self, config: UNetConfig = UNetConfig()):
+    ``dtype`` is the compute dtype (the JAX module's ``dtype``): the
+    input, the time MLPs, every conv and matmul and the activations
+    between them run in it; ``norm_cond``, the GroupNorms and the
+    attention's context norm run in f32; the output is f32.  The
+    parameters are whatever the module holds (f32 masters, or a cast
+    copy: ``models.py``)."""
+
+    def __init__(self, config: UNetConfig = UNetConfig(),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = self.config = config
         tcd, cd = cfg.time_cond_dim, cfg.cond_dim
@@ -84,11 +98,11 @@ class EfficientUNet(nn.Module):
             cfg.init_cross_embed_kernel_sizes, stride=1)
         self.to_time_hiddens = nn.Sequential(
             LearnedSinusoidalPosEmb(cfg.learned_sinu_pos_emb_dim),
-            nn.Linear(cfg.learned_sinu_pos_emb_dim + 1, tcd), nn.SiLU())
+            Linear(cfg.learned_sinu_pos_emb_dim + 1, tcd), nn.SiLU())
         self.to_time_tokens = nn.Sequential(
-            nn.Linear(tcd, cd * cfg.num_time_tokens))
-        self.to_time_cond = nn.Sequential(nn.Linear(tcd, tcd))
-        self.norm_cond = nn.LayerNorm(cd)
+            Linear(tcd, cd * cfg.num_time_tokens))
+        self.to_time_cond = nn.Sequential(Linear(tcd, tcd))
+        self.norm_cond = LayerNormF32(cd)
 
         dims = [cfg.dim] + [cfg.dim * m for m in cfg.dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
@@ -144,8 +158,10 @@ class EfficientUNet(nn.Module):
             ResnetBlock(cfg.dim, cfg.dim, use_gca=True, **res)
             if cfg.final_resnet_block else None)
         k = cfg.final_conv_kernel_size
-        self.final_conv = nn.Conv2d(cfg.dim, cfg.channels_out, k,
-                                    padding=k // 2)
+        self.final_conv = Conv2d(cfg.dim, cfg.channels_out, k,
+                                 padding=k // 2)
+        self.dtype = dtype
+        set_compute_dtype(self, dtype)
 
     @torch.no_grad()
     def init_weights_(self, generator: Optional[torch.Generator] = None):
@@ -162,6 +178,8 @@ class EfficientUNet(nn.Module):
                 ) -> torch.Tensor:
         cfg = self.config
         b = x.shape[0]
+        dt = self.dtype
+        x = x.to(dt)
         if cfg.cond_images_channels > 0:
             if cond_images is None or \
                     cond_images.shape[1] != cfg.cond_images_channels:
@@ -170,17 +188,18 @@ class EfficientUNet(nn.Module):
             if cond_images.shape[-2:] != x.shape[-2:]:
                 cond_images = F.interpolate(cond_images, size=x.shape[-2:],
                                             mode="nearest")
+            cond_images = cond_images.to(dt)
             if cond_keep_mask is not None:
                 cond_images = cond_images * cond_keep_mask.to(
-                    x.dtype)[:, None, None, None]
-            x = torch.cat([cond_images.to(x.dtype), x], dim=1)
+                    dt)[:, None, None, None]
+            x = torch.cat([cond_images, x], dim=1)
         x = self.init_conv(x)
 
         time_hiddens = self.to_time_hiddens(log_snr.float())
         time_tokens = self.to_time_tokens(time_hiddens).reshape(
             b, cfg.num_time_tokens, cfg.cond_dim)
         t = self.to_time_cond(time_hiddens)
-        c = self.norm_cond(time_tokens)
+        c = self.norm_cond(time_tokens).to(dt)
 
         hiddens: List[torch.Tensor] = []
         for _, init_block, res_blocks, attn, ds in self.downs:

@@ -4,8 +4,9 @@ PyTorch.
 The plain version of the hand-written kernel K2
 (``kernels/attention.py`` + ``csrc/imagen_attention.cu``), which the
 view-conditioned UNet's ``nn/layers.py::Attention`` calls.  It is
-``sparsefusion_tpu/kernels/attention.py::reference_attention``: the CPU
-path and the reference the kernel is held against.
+``sparsefusion_tpu/kernels/attention.py::_attn_kernel`` (in f32 also its
+``reference_attention``): the CPU path, the path for head dims the kernel
+has no instance for, and the reference the kernel is held against.
 """
 from __future__ import annotations
 
@@ -14,7 +15,10 @@ import torch
 
 def imagen_attention_plain(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T) v, logits and softmax in f32, cast back to v's type.
+    """softmax(q k^T) v in the TPU kernel's arithmetic (``_attn_kernel``):
+    logits from q and k upcast to f32, the softmax in f32, P rounded to
+    v's type, P v summed in f32, the output in q's type.  In f32 every
+    cast is a no-op.
 
     Args:
         q: (B, H, N, D) pre-scaled queries.
@@ -24,9 +28,10 @@ def imagen_attention_plain(q: torch.Tensor, k: torch.Tensor,
     Returns:
         (B, H, N, D).
     """
-    sim = torch.einsum("bhnd,bjd->bhnj", q, k)
-    attn = torch.softmax(sim.float(), dim=-1).to(v.dtype)
-    return torch.einsum("bhnj,bjd->bhnd", attn, v)
+    sim = torch.einsum("bhnd,bjd->bhnj", q.float(), k.float())
+    attn = torch.softmax(sim, dim=-1).to(v.dtype)
+    out = torch.einsum("bhnj,bjd->bhnd", attn.float(), v.float())
+    return out.to(q.dtype)
 
 
 def imagen_attention_backward_plain(q, k, v, grad_out):

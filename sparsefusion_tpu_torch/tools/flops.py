@@ -11,7 +11,9 @@ diffusion batch, the EFT's encode, render and backward at each context
 size, the frozen VAE's encode of the query; and the bytes of the Adam
 updates (parameter, gradient and both moments read, parameter and both
 moments written: 28 bytes a trained parameter).  ``chip_smoke.py`` takes
-the step's bound from these counts.
+the step's bound from these counts: :func:`step_bound_s` at the peak of
+the step's precision on one H100 SXM (the data sheet's dense rates: 67
+TFLOP/s f32 outside the tensor cores, 495 TF32, 989 bf16).
 """
 from __future__ import annotations
 
@@ -27,6 +29,11 @@ from sparsefusion_tpu_torch.nn.unet import EfficientUNet, UNetConfig
 from sparsefusion_tpu_torch.nn.vae import AutoencoderKL, VAEConfig
 
 ADAM_BYTES_PER_PARAM = 28
+# NVIDIA H100 SXM, dense, operations per second
+F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
+BF16_OPS_PER_S = 989e12
+PRECISIONS = ("float32", "tf32", "bfloat16")
 
 
 def _count(fn) -> int:
@@ -101,6 +108,23 @@ def step_flops(counts: dict, n_context: int) -> int:
             + counts["vae_encode"])
 
 
+def step_bound_s(counts: dict, n_context: int,
+                 precision: str = "float32") -> float:
+    """The least seconds one step's operations take on one H100:
+    ``float32`` all at the f32 peak; ``tf32`` (f32 storage, TF32 matmuls
+    and convolutions: every counted operation) all at the TF32 peak;
+    ``bfloat16`` (``--bf16``: the UNet in bf16) the UNet's forward and
+    backward at the bf16 peak, the EFT and the VAE at the f32 peak."""
+    other = counts[f"eft_fwd_bwd_nc{n_context}"] + counts["vae_encode"]
+    if precision == "float32":
+        return (counts["unet_fwd_bwd"] + other) / F32_OPS_PER_S
+    if precision == "tf32":
+        return (counts["unet_fwd_bwd"] + other) / TF32_OPS_PER_S
+    if precision == "bfloat16":
+        return counts["unet_fwd_bwd"] / BF16_OPS_PER_S + other / F32_OPS_PER_S
+    raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--image_size", type=int, default=256)
@@ -109,6 +133,9 @@ def main(argv=None) -> None:
     counts = train_step_counts(args.image_size, args.diffusion_batch_size)
     counts.update({f"step_flops_nc{nc}": step_flops(counts, nc)
                    for nc in (2, 3, 4, 5)})
+    counts.update({f"step_bound_ms_{p}_nc{nc}":
+                   step_bound_s(counts, nc, p) * 1e3
+                   for p in PRECISIONS for nc in (2, 3, 4, 5)})
     print(json.dumps(counts, indent=1))
 
 

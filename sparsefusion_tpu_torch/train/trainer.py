@@ -15,7 +15,10 @@ for each scene of its batch:
   query image at the rays' pixels.
 
 The losses are averaged over the scenes; the UNet (and EFT) take an Adam
-step behind the non-finite guard (:class:`GuardedAdam`).
+step behind the non-finite guard (:class:`GuardedAdam`).  With
+``compute_dtype="bfloat16"`` the UNet computes in bf16 on its f32 master
+parameters (``models.py::unet_compute_view``); the EFT, the VAE, the
+loss, the gradients and Adam stay f32, as in the JAX step.
 
 The JAX step vmaps its scenes over a device mesh; here each process takes
 its scenes in a loop (one backward per scene, the gradients summed), and
@@ -44,13 +47,11 @@ from sparsefusion_tpu_torch.core.cameras import (
     get_relative_cameras,
 )
 from sparsefusion_tpu_torch.core.rays import grid_ray_bundle
+from sparsefusion_tpu_torch.models import unet_compute_view
 from sparsefusion_tpu_torch.ops.image import grid_sample_bilinear, resize_bilinear
 from sparsefusion_tpu_torch.utils.image import huber
 
-NOT_PORTED_BF16 = (
-    "bfloat16 training (TrainConfig.compute_dtype, --bf16) is not ported "
-    "yet: it needs a bfloat16 instance of the attention kernel, which goes "
-    "with sampler_bf16 (ROADMAP.md section 1, item 10a)")
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +68,9 @@ class TrainConfig:
     latent_size: int = 32
     eft_n_pts: int = 20
     valid_thresh: float = 0.6
-    # only "float32" is ported; "bfloat16" raises NotImplementedError
+    # the UNet's compute dtype, "float32" or "bfloat16": in bf16 the UNet
+    # runs its convolutions, matmuls and attention in bf16 on the f32
+    # master parameters; the gradients, Adam's state and the loss stay f32
     compute_dtype: str = "float32"
     # skip (never apply) an update whose gradients hold a NaN or inf
     guard_nonfinite: bool = True
@@ -211,16 +214,17 @@ class TrainStep:
 
     def __init__(self, models, cfg: TrainConfig, unet_opt: GuardedAdam,
                  eft_opt: Optional[GuardedAdam] = None):
-        if cfg.compute_dtype == "bfloat16":
-            raise NotImplementedError(NOT_PORTED_BF16)
-        if cfg.compute_dtype != "float32":
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}")
         if cfg.train_eft and eft_opt is None:
             raise ValueError("train_eft needs the EFT's optimizer")
         self.models = models
         self.cfg = cfg
         self.opts = [unet_opt] + ([eft_opt] if cfg.train_eft else [])
-        self.unet = models.unet
+        # in bf16, the UNet's network in bf16 over its own f32 parameters
+        dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+        self.unet = (models.unet if dtype == torch.float32
+                     else unet_compute_view(models.unet, dtype))
         self.eft_query = _EFTQuery(models.eft)
         self.ddp_modules = []
         if (torch.distributed.is_available()
@@ -235,6 +239,7 @@ class TrainStep:
                 self.ddp_modules.append(self.eft_query)
 
     def _denoise(self, x, log_snr, cond_images, keep_mask):
+        # the UNet's output is f32 in either dtype: the eps loss is f32
         self.models.unet_evals += 1
         return self.unet(x, log_snr, cond_images, keep_mask)
 

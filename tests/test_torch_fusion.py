@@ -246,11 +246,10 @@ def test_feature_cache_matches_jax():
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("option", ["fusion_rays", "sampler_bf16"])
+@pytest.mark.parametrize("option", ["fusion_rays"])
 def test_loop_refuses_unported_diffusion_options(option):
     scene = make_synthetic_scene(n_views=2, image_size=8, seed=0)
-    cfg = tloop.DistillConfig(max_itr=1, **{
-        option: 16 if option == "fusion_rays" else True})
+    cfg = tloop.DistillConfig(max_itr=1, **{option: 16})
     with pytest.raises(NotImplementedError, match=option):
         tloop.distillation_loop(object(), scene, [0, 1], cfg,
                                 torch.Generator(), use_diffusion=True)

@@ -1,10 +1,13 @@
-"""The CUDA kernels (grid encode K1, imagen attention K2) against their
-plain PyTorch versions, on a CUDA card.  Without one these tests skip: a
-CUDA kernel has no CPU mode.
+"""The CUDA kernels (grid encode K1, imagen attention K2 in f32 and bf16)
+against their plain PyTorch versions, on a CUDA card.  Without one these
+tests skip: a CUDA kernel has no CPU mode.  f32 matmuls and convolutions
+run in full f32 here (``set_tf32(False)``, as the entry points set it).
 
 This file imports no jax, so it also runs where JAX is not installed:
 ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py``.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +20,19 @@ from sparsefusion_tpu_torch.ops.grid_encode import (
     grid_encode_plain,
     make_grid_encoding,
 )
+from sparsefusion_tpu_torch.utils.precision import set_tf32
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _full_f32():
+    """Full f32 matmuls and convolutions for the module, as the port's
+    entry points set them; the process's settings are restored after."""
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    set_tf32(False)
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = before
 
 CASES = {
     "tiled": (dict(num_levels=4, level_dim=2, base_resolution=4,
@@ -111,8 +127,10 @@ def test_imagen_attention_kernel_refuses_what_it_does_not_take():
     k = torch.zeros(1, 3, 64, device="cuda")
     with pytest.raises(ValueError, match="contiguous"):
         attention.imagen_attention_cuda(q.transpose(1, 2), k, k)
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
         attention.imagen_attention_cuda(q.double(), k.double(), k.double())
+    with pytest.raises(ValueError, match="one dtype"):
+        attention.imagen_attention_cuda(q, k.bfloat16(), k.bfloat16())
 
 
 # (H, N) pairs with H*N = 5, 16, 128 and 8192 rows of one batch
@@ -165,6 +183,163 @@ def test_imagen_attention_kernel_small_head_dims(bhn, n_keys, d):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, imagen_attention_plain(q, k, v),
                                atol=1e-5, rtol=0)
+
+
+# K2's bf16 instance against the plain version in bf16.  Both compute
+# the logits and the softmax in f32 and round P to bf16; the kernel rounds
+# the unnormalised exp(s - running max), the plain version the normalised
+# P, and each output is rounded to bf16 once.  So they differ by one
+# output ulp (2^-7 relative at most) plus the rounding of P on the sum
+# over keys; an emulation of the kernel's arithmetic in torch on these
+# shapes (every head dim alike) stays within 5.2e-3 beyond one ulp.
+BF16_ATOL, BF16_RTOL = 1e-2, 2 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
+@pytest.mark.parametrize("n_keys", [1, 7, 17, 19, 127, 129, 257, 1027])
+@pytest.mark.parametrize("bhn", [(1, 1, 5), (12, 8, 16), (2, 2, 2048)],
+                         ids=lambda bhn: "B{}H{}N{}".format(*bhn))
+def test_imagen_attention_bf16_kernel_matches_plain(bhn, n_keys, d):
+    """Every head dim (D = 8 pads its reduction to 16), partial m-tiles,
+    one key, ragged key tiles around 16-key steps and the 64- and 128-key
+    tiles, up to 1027 keys (a wrong P fragment mapping shows only beyond
+    8 keys)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    b, h, n = bhn
+    rng = np.random.RandomState(b * 1000 + n_keys + d)
+    q = torch.tensor((rng.randn(b, h, n, d) * d ** -0.5).astype(np.float32))
+    k = torch.tensor(rng.randn(b, n_keys, d).astype(np.float32))
+    v = torch.tensor(rng.randn(b, n_keys, d).astype(np.float32))
+    q, k, v = (t.cuda().bfloat16() for t in (q, k, v))
+    attention.reset_launches()
+    got = attention.imagen_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert attention.imagen_attention_cuda.launches_bf16 == 1
+    torch.testing.assert_close(got.float(),
+                               imagen_attention_plain(q, k, v).float(),
+                               atol=BF16_ATOL, rtol=BF16_RTOL)
+
+
+@pytest.mark.cuda
+def test_imagen_attention_bf16_through_the_dispatcher():
+    """The UNet's shape in bf16 with gradients: one bf16 launch, the plain
+    backward in f32 cast back to bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.RandomState(5)
+    q = torch.tensor(rng.randn(1, 8, 16, 64).astype(np.float32) / 8)
+    k = torch.tensor(rng.randn(1, 19, 64).astype(np.float32))
+    v = torch.tensor(rng.randn(1, 19, 64).astype(np.float32))
+    q, k, v = (t.cuda().bfloat16().requires_grad_() for t in (q, k, v))
+    attention.reset_launches()
+    out = attention.imagen_attention(q, k, v)
+    g = torch.randn_like(out)
+    (out.float() * g.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert attention.imagen_attention_cuda.launches == 1
+    assert attention.imagen_attention_cuda.launches_bf16 == 1
+    want = attention.imagen_attention_backward_plain(q, k, v, g)
+    for got, ref in zip((q.grad, k.grad, v.grad), want):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got, ref, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_imagen_attention_other_head_dims_take_the_plain_version(dtype):
+    """D = 48 has no kernel instance: the dispatcher routes it to the plain
+    version (the reference runs any head dim), launches nothing, and the
+    kernel's own wrapper still refuses it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.RandomState(48)
+    q = torch.tensor(rng.randn(2, 4, 16, 48).astype(np.float32) / 7)
+    k = torch.tensor(rng.randn(2, 19, 48).astype(np.float32))
+    v = torch.tensor(rng.randn(2, 19, 48).astype(np.float32))
+    q, k, v = (t.cuda().to(dtype) for t in (q, k, v))
+    attention.reset_launches()
+    got = attention.imagen_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.imagen_attention_cuda.launches == 0
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, imagen_attention_plain(q, k, v),
+                               atol=0, rtol=0)
+    with pytest.raises(ValueError, match="head dim"):
+        attention.imagen_attention_cuda(q, k, v)
+
+
+@pytest.mark.cuda
+def test_tiny_bf16_train_step_card_matches_cpu():
+    """One bf16 train step of the tiny models (``--preset tiny``: K2's
+    bf16 instance at D = 8) on the card and on the CPU from the same
+    weights, batch and draws.  Both run the UNet in bf16 with rounding in
+    different places (cuDNN's bf16 convolutions against the CPU's), so the
+    loss agrees to 1e-2 relative and each model's gradients to 5e-2
+    (Frobenius over the model); the parameters and Adam's moments stay
+    f32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import copy
+
+    from sparsefusion_tpu_torch.data.synthetic import make_synthetic_scene
+    from sparsefusion_tpu_torch.models import build_models
+    from sparsefusion_tpu_torch.nn.unet import UNetConfig
+    from sparsefusion_tpu_torch.nn.vae import VAEConfig
+    from sparsefusion_tpu_torch.train import trainer
+
+    models_cpu = build_models(
+        torch.Generator().manual_seed(0), "cpu",
+        unet_config=UNetConfig(dim=32, dim_mults=(1, 2),
+                               num_resnet_blocks=(1, 1),
+                               layer_attns=(False, True), attn_heads=2,
+                               attn_dim_head=8),
+        vae_config=VAEConfig(ch=32, ch_mult=(1, 1, 2, 2), num_res_blocks=1))
+    with torch.no_grad():   # a zero final conv would hide the UNet
+        models_cpu.unet.final_conv.weight.normal_(
+            0.0, 0.1, generator=torch.Generator().manual_seed(1))
+    cfg = trainer.TrainConfig(latent_size=8, context_size=2,
+                              diffusion_batch_size=2,
+                              compute_dtype="bfloat16")
+    scene = make_synthetic_scene(n_views=4, image_size=64, seed=0)
+    rng = np.random.RandomState(0)
+    draws = {"times": rng.uniform(0, 0.999, 2), "noise": rng.randn(2, 4, 8, 8),
+             "keep": rng.rand(2) < 0.9}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        models = copy.deepcopy(models_cpu)
+        for m in (models.eft, models.vae, models.unet):
+            m.to(dev)
+        unet_opt, eft_opt = trainer.make_optimizers(cfg, models)
+        step = trainer.make_train_step(models, cfg, unet_opt, eft_opt)
+        batch = trainer.prepare_scene_batch([scene], [0], [[1, 2]], dev)
+        d = [{k: torch.as_tensor(v, device=dev, dtype=torch.bool
+                                 if k == "keep" else torch.float32)
+              for k, v in draws.items()}]
+        attention.reset_launches()
+        loss = float(step(batch, draws=d)[0])
+        out[dev] = {"loss": loss,
+                    "launches": attention.imagen_attention_cuda.launches_bf16,
+                    "grads": {f"{name}.{n}": p.grad.cpu()
+                              for name, m in (("unet", models.unet),
+                                              ("eft", models.eft))
+                              for n, p in m.named_parameters()}}
+        for opt in (unet_opt, eft_opt):
+            for p in opt.params:
+                assert p.dtype == torch.float32
+                assert all(t.dtype == torch.float32 for key, t in
+                           opt.adam.state[p].items() if key != "step")
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert math.isfinite(gpu["loss"])
+    assert cpu["launches"] == 0 and gpu["launches"] == 3
+    assert abs(cpu["loss"] - gpu["loss"]) <= 1e-2 * abs(cpu["loss"])
+    for model in ("unet", "eft"):
+        names = [n for n in cpu["grads"] if n.startswith(model + ".")]
+        gc = torch.cat([cpu["grads"][n].ravel() for n in names])
+        gg = torch.cat([gpu["grads"][n].ravel() for n in names])
+        assert ((gc - gg).norm() / gc.norm()).item() <= 5e-2, model
 
 
 def _ray_points(n_rays, n_samples, seed):

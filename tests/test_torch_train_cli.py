@@ -1,5 +1,5 @@
-"""The port's train CLI on the CPU: checkpoints, resume, and the paths it
-refuses.
+"""The port's train CLI on the CPU: checkpoints, resume, and the device
+it refuses (``--bf16``: ``test_torch_train_bf16.py``).
 
 A run of 3 steps (checkpoint at step 2 and at the end) resumed for a 4th
 step ends with the same parameters, optimizer state and guard counts as
@@ -72,11 +72,6 @@ def test_checkpoint_round_trip(tmp_path):
     host.set_state(back["rng"][0]["host"])
     assert host.randint(1000) == np.random.RandomState(3).randint(1000)
     assert sorted(p.name for p in path.parent.iterdir()) == ["ckpt_latest"]
-
-
-def test_bf16_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(TINY + ["--exp_dir", str(tmp_path), "--bf16"])
 
 
 def test_refuses_cuda_without_a_device(monkeypatch, tmp_path):
