@@ -29,23 +29,43 @@ first), except in the TF32 train profile of step 7.
    in the same type as its yardstick (the port never calls it) and the
    plain backward's time; head dims 8 and 16 (bf16 also 32) at ragged
    shapes; head dim 48 through the dispatcher in both types (the plain
-   version, no launch).  Times are device times by ``torch.profiler``,
-   with CUDA-event times beside them; each kernel's bound is computed
-   from the bytes and operations of its inputs.  Then the NGP-only
-   demo's input step at full width under ``torch.profiler``: device time
-   per step by kernel, K1's launches per step and its time per launch on
-   the renderer's own points.  ``--kernels-only`` stops here.
-4. Card against CPU: one input step on a small input, then one
+   version, no launch).  The row gather (K3) through the JAX
+   micro-benchmark's counterpart, ``tools/gather_micro.py`` (its lines
+   printed; K3's launches counted over it): (R, 128) bf16 tables for R in
+   {8192, 16384, 32768} at N = 131,072 and 2,097,152 rows, bit-equal to
+   its plain version and timed against one ``index_select``, with the
+   bytes bound and the 32-byte sectors per second; one f32 case; indices
+   outside [0, R) must give rows of zeros.  Times are device times by
+   ``torch.profiler``, with CUDA-event times beside them; each kernel's
+   bound is computed from the bytes and operations of its inputs.  Then
+   the NGP-only demo's input step at full width under
+   ``torch.profiler``: device time per step by kernel, K1's launches per
+   step and its time per launch on the renderer's own points.
+   ``--kernels-only`` stops here.
+4. The TPU preset's input step (``tpu_distill_config()``) profiled as in
+   step 3, in its two render modes: two-phase through the all-occupied
+   bitfield, and the single-pass march inside the bitfield of one grid
+   update.  Card against CPU: one input step on a small input, then one
    bootstrap step and one fusion step (narrow UNet and VAE, 2-step
    PLMS) from the same weights and draws; then with the bf16 sampler
    (``DistillConfig(sampler_bf16=True)``) the sampler's target of one
-   image and one fusion step.
+   image and one fusion step; then the occupancy grid's update (jitter
+   passed in) and near/far tightening at the loop's 128^3 grid, and the
+   TPU preset's marching input step and subsampled fusion step inside
+   that bitfield.
 5. The NGP-only demo at full width (``DistillConfig()``, ``NGPConfig()``,
-   256 px, 100 iterations) through ``sparsefusion_tpu_torch.cli.demo.main``.
+   256 px, 100 iterations) through ``sparsefusion_tpu_torch.cli.demo.main``;
+   then the TPU preset's (``--preset tpu``: 8 x C4 bf16 table, occupancy
+   grid from iteration 500, single-pass 32-sample marching after it) for
+   600 iterations: it/s before and after the switch, grid-update
+   seconds, occupied share, K1's bf16 launches.
 6. Main path: the full-width diffusion demo (``UNetConfig()``,
    ``VAEConfig()``, ``EFTConfig()``, 256 px, 40 iterations, fusion after
    iteration 20), through ``cli.demo.main`` and again through
-   ``distillation_loop`` with ``DistillConfig(sampler_bf16=True)``.  Each
+   ``distillation_loop`` with ``DistillConfig(sampler_bf16=True)`` (30
+   iterations) and with ``tpu_distill_config(occupancy_start=10,
+   occupancy_update_every=8)`` (marching from iteration 10, fusion
+   gradient steps on 4096 rays).  Each
    demo runs with the kernels' launch counts reset just before and read
    just after; K2 must launch three times per UNet evaluation (every
    attention layer of ``UNetConfig()`` has head dim 64, which K2 has an
@@ -74,7 +94,8 @@ first), except in the TF32 train profile of step 7.
    Then one full-width visualization grid (64-step ancestral sample),
    called directly.
 8. Prints the kernels' JSON line (K2's bf16 instance an entry of its
-   own), then ``{"ok": true, "device": ...}`` as the last line.
+   own; K3's launches are the micro's), then ``{"ok": true, "device":
+   ...}`` as the last line.
 
 Every check asserts or raises; the script exits non-zero without a
 result when there is no CUDA device or the port is not importable.
@@ -93,6 +114,12 @@ import numpy as np
 import torch
 
 from sparsefusion_tpu_torch.tools.flops import BF16_OPS_PER_S, F32_OPS_PER_S
+from sparsefusion_tpu_torch.tools.profiling import (
+    device_ms,
+    event_ms,
+    named_ms,
+    profile_window,
+)
 
 N_POINTS = 16384 * 128          # rays x samples of one 128^2 input step
 RAY_CHUNK = (4096, 64)          # rays x samples of one launch on the main path
@@ -105,6 +132,15 @@ PROFILE_TRAIN_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12
 
 
+_T0 = time.perf_counter()
+
+
+def _mark(phase):
+    """Seconds since the script started, printed after each phase: where
+    the run's own time goes."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {phase} done", flush=True)
+
+
 def _device_lines():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -113,93 +149,6 @@ def _device_lines():
     print(smi)
     print(f"torch device: {torch.cuda.get_device_name(0)} "
           f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
-
-
-def _time_ms(fn):
-    """Mean milliseconds of fn() over TIMING_ITERS back-to-back runs, by
-    CUDA events: at a few microseconds a launch this is the host's
-    enqueue rate, not the device's time."""
-    for _ in range(2):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(TIMING_ITERS):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / TIMING_ITERS
-
-
-def _kernel_ms(prof, n_calls):
-    """{kernel name: device ms per call} from a finished torch.profiler
-    run over n_calls calls: each kernel's mean duration times its
-    launches per call, so a record the profiler drops does not count as
-    a call without the kernel."""
-    by_name = {}
-    for e in prof.key_averages():
-        us = max(getattr(e, a, 0) or 0 for a in (
-            "self_device_time_total", "device_time_total",
-            "self_cuda_time_total", "cuda_time_total"))
-        if us > 0 and e.count > 0:
-            if e.count % n_calls:
-                print(f"  (profiler: {e.count} records of {e.key[:60]} "
-                      f"over {n_calls} calls)")
-            per_call = max(1, round(e.count / n_calls))
-            by_name[e.key] = by_name.get(e.key, 0.0) \
-                + us / 1e3 / e.count * per_call
-    if not by_name:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return by_name
-
-
-def _profile_window(run, n_calls, reset=None, attempts=3):
-    """torch.profiler's device activity over ``run()``, which makes
-    ``n_calls`` calls and ends in a synchronise: (kernel name -> device ms
-    per call, the profile, host ms per call).  ``reset()`` runs before
-    each attempt.  A window whose profile recorded no device time (the
-    tracer now and then returns none) is taken again, up to ``attempts``
-    times."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for attempt in range(attempts):
-        if reset is not None:
-            reset()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            host_ms = (time.perf_counter() - t0) * 1e3 / n_calls
-        try:
-            return _kernel_ms(prof, n_calls), prof, host_ms
-        except RuntimeError:
-            if attempt == attempts - 1:
-                raise
-            print(f"  (profiler: no device time recorded, attempt "
-                  f"{attempt + 1} of {attempts})")
-
-
-def _device_ms(fn):
-    """Device time of one fn() call by torch.profiler, over PROFILE_ITERS
-    calls after 2 warm ones: {kernel name: ms per call}, summed over the
-    call's launches of that kernel."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-
-    def run():
-        for _ in range(PROFILE_ITERS):
-            fn()
-
-    return _profile_window(run, PROFILE_ITERS)[0]
-
-
-def _named_ms(by_name, kernel):
-    ms = [t for name, t in by_name.items() if kernel in name]
-    if not ms:
-        raise RuntimeError(f"{kernel} not among the profiled kernels "
-                           f"{sorted(by_name)}")
-    return sum(ms)
 
 
 def _bound(n_bytes, ops=0, ops_per_s=F32_OPS_PER_S):
@@ -298,22 +247,24 @@ def _kernel_case(name, enc, table_dtype, x01, gen, timed, sectors=False):
     times = None
     if timed:
         with torch.no_grad():
-            fwd = _device_ms(lambda: grid_encode_cuda(x01, table, enc))
-            bwd = _device_ms(lambda: grid_encode_cuda_backward(
-                x01, grad_out, enc, bf16))
-            fwd_plain = _device_ms(lambda: grid_encode_plain(
-                x01, master, enc, table_dtype))
+            fwd = device_ms(lambda: grid_encode_cuda(x01, table, enc),
+                            PROFILE_ITERS)
+            bwd = device_ms(lambda: grid_encode_cuda_backward(
+                x01, grad_out, enc, bf16), PROFILE_ITERS)
+            fwd_plain = device_ms(lambda: grid_encode_plain(
+                x01, master, enc, table_dtype), PROFILE_ITERS)
             times = {
-                "fwd_ms": _named_ms(fwd, "grid_encode_fwd_kernel"),
-                "fwd_event_ms": _time_ms(
-                    lambda: grid_encode_cuda(x01, table, enc)),
+                "fwd_ms": named_ms(fwd, "grid_encode_fwd_kernel"),
+                "fwd_event_ms": event_ms(
+                    lambda: grid_encode_cuda(x01, table, enc), TIMING_ITERS),
                 "fwd_plain_ms": sum(fwd_plain.values()),
-                "bwd_ms": _named_ms(bwd, "grid_encode_bwd_kernel"),
-                "bwd_event_ms": _time_ms(lambda: grid_encode_cuda_backward(
-                    x01, grad_out, enc, bf16)),
+                "bwd_ms": named_ms(bwd, "grid_encode_bwd_kernel"),
+                "bwd_event_ms": event_ms(lambda: grid_encode_cuda_backward(
+                    x01, grad_out, enc, bf16), TIMING_ITERS),
             }
-        times["bwd_plain_ms"] = sum(_device_ms(lambda: torch.autograd.grad(
-            out_p, master_p, grad_out, retain_graph=True)).values())
+        times["bwd_plain_ms"] = sum(device_ms(lambda: torch.autograd.grad(
+            out_p, master_p, grad_out, retain_graph=True),
+            PROFILE_ITERS).values())
         # bytes: points, table (read) or its f32 gradient (written), and
         # the (N, L*C) f32 encodings (written) or their gradient (read)
         times["fwd_bound_ms"], _ = _bound(_nbytes(x01, table, out_k))
@@ -431,12 +382,17 @@ def small_input_step_check():
         assert rel <= 5e-2, f"gradient of {name} disagrees"
 
 
-def input_step_profile():
-    """The NGP-only demo's input step at full width (``DistillConfig()``,
-    ``NGPConfig()``, a 256 px synthetic scene, 128^2 renders): 5 warm
-    steps, then PROFILE_STEPS steps under torch.profiler.  Reports device
-    time per step by kernel, the kernels' launches per step, and the host
-    clock per step (each step ends in a loss read)."""
+def input_step_profile(preset="reference"):
+    """The NGP-only demo's input step at full width (a 256 px synthetic
+    scene, 128^2 renders): 5 warm steps, then PROFILE_STEPS steps under
+    torch.profiler.  Reports device time per step by kernel, the kernels'
+    launches per step, and the host clock per step (each step ends in a
+    loss read).  ``preset`` "reference": ``DistillConfig()``,
+    ``NGPConfig()``; "tpu": ``tpu_distill_config()`` (4096 of the 16,384
+    rays, 8 x C4 bf16 table) in both of its render modes: 32+32 two-phase
+    through the all-occupied bitfield, as before ``occupancy_start``, and
+    the 32-sample march inside the bitfield of one grid update of the
+    (untrained) field.  Returns {mode: stats}."""
     from sparsefusion_tpu_torch.core.cameras import (
         get_camera_slice,
         get_relative_cameras,
@@ -446,12 +402,15 @@ def input_step_profile():
         DistillConfig,
         make_ngp_optimizer,
         make_scene_step_fns,
+        render_schedule,
+        tpu_distill_config,
     )
     from sparsefusion_tpu_torch.kernels import grid_encode
     from sparsefusion_tpu_torch.nn.ngp import NGPField
+    from sparsefusion_tpu_torch.render.occupancy import OccupancyGrid
     from sparsefusion_tpu_torch.render.volume import VolumeRendererConfig
 
-    cfg = DistillConfig()
+    cfg = tpu_distill_config() if preset == "tpu" else DistillConfig()
     size = 256
     scene = make_synthetic_scene(n_views=2, image_size=size, seed=0)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -466,44 +425,59 @@ def input_step_profile():
                                 center_at_origin=False)
     rgb = torch.as_tensor(scene.images, device="cuda")
     mask = torch.as_tensor(scene.masks, device="cuda")
+    modes = {preset: (vcfg, None)}
+    if preset == "tpu":
+        grid = OccupancyGrid(bound=cfg.bound,
+                             density_thresh=cfg.density_thresh, device="cuda")
+        schedule = render_schedule(cfg, vcfg)
+        modes = {"tpu_two_phase": (schedule(0), grid.full_bitfield()),
+                 "tpu_march": (schedule(cfg.occupancy_start), grid.update(
+                     lambda p: field(p)[0], gen).bitfield)}
+    out = {}
+    for label, (vc, bitfield) in modes.items():
+        def step(i):
+            v = i % 2
+            return float(steps.input_step(vc, get_camera_slice(cams, [v]),
+                                          rgb[v], mask[v], gen,
+                                          bitfield=bitfield))
 
-    def step(i):
-        v = i % 2
-        return float(steps.input_step(vcfg, get_camera_slice(cams, [v]),
-                                      rgb[v], mask[v], gen))
-
-    for i in range(5):
-        step(i)
-    torch.cuda.synchronize()
-
-    def run():
-        for i in range(PROFILE_STEPS):
+        for i in range(5):
             step(i)
+        torch.cuda.synchronize()
 
-    per_step, _, host_ms = _profile_window(
-        run, PROFILE_STEPS, reset=grid_encode.reset_launches)
-    launches = {"grid_encode_fwd": grid_encode.grid_encode_cuda.launches
-                / PROFILE_STEPS,
-                "grid_encode_bwd": grid_encode.grid_encode_cuda_backward
-                .launches / PROFILE_STEPS}
-    device_ms = sum(per_step.values())
-    k1 = {"fwd_ms": _named_ms(per_step, "grid_encode_fwd_kernel"),
-          "bwd_ms": _named_ms(per_step, "grid_encode_bwd_kernel")}
-    stats = {"device_ms_per_step": device_ms, "host_ms_per_step": host_ms,
-             "launches_per_step": launches,
-             "k1_fwd_ms_per_step": k1["fwd_ms"],
-             "k1_bwd_ms_per_step": k1["bwd_ms"],
-             "k1_fwd_ms_per_launch": k1["fwd_ms"]
-             / launches["grid_encode_fwd"],
-             "k1_bwd_ms_per_launch": k1["bwd_ms"]
-             / launches["grid_encode_bwd"]}
-    print("input step profile (mean of "
-          f"{PROFILE_STEPS} steps): " + json.dumps(stats))
-    for name, ms in sorted(per_step.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"  {ms:8.3f} ms/step ({100 * ms / device_ms:5.1f}%) "
-              f"{name[:110]}")
-    assert launches["grid_encode_fwd"] > 0 and launches["grid_encode_bwd"] > 0
-    return stats
+        def run():
+            for i in range(PROFILE_STEPS):
+                step(i)
+
+        per_step, _, host_ms = profile_window(
+            run, PROFILE_STEPS, reset=grid_encode.reset_launches)
+        launches = {"grid_encode_fwd": grid_encode.grid_encode_cuda.launches
+                    / PROFILE_STEPS,
+                    "grid_encode_bwd": grid_encode.grid_encode_cuda_backward
+                    .launches / PROFILE_STEPS}
+        device_ms = sum(per_step.values())
+        k1 = {"fwd_ms": named_ms(per_step, "grid_encode_fwd_kernel"),
+              "bwd_ms": named_ms(per_step, "grid_encode_bwd_kernel")}
+        stats = {"device_ms_per_step": device_ms, "host_ms_per_step": host_ms,
+                 "launches_per_step": launches,
+                 "k1_fwd_ms_per_step": k1["fwd_ms"],
+                 "k1_bwd_ms_per_step": k1["bwd_ms"],
+                 "k1_fwd_ms_per_launch": k1["fwd_ms"]
+                 / launches["grid_encode_fwd"],
+                 "k1_bwd_ms_per_launch": k1["bwd_ms"]
+                 / launches["grid_encode_bwd"]}
+        if bitfield is not None:
+            stats["occupied_share"] = float(np.unpackbits(
+                bitfield.cpu().numpy()).mean())
+        print(f"input step profile ({label}, mean of "
+              f"{PROFILE_STEPS} steps): " + json.dumps(stats))
+        for name, ms in sorted(per_step.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"  {ms:8.3f} ms/step ({100 * ms / device_ms:5.1f}%) "
+                  f"{name[:110]}")
+        assert launches["grid_encode_fwd"] > 0 \
+            and launches["grid_encode_bwd"] > 0
+        out[label] = stats
+    return out
 
 
 ATTN_SHAPES = [(1, 8, 16, 64, 17), (1, 8, 16, 64, 19),
@@ -547,7 +521,7 @@ def _sdpa_yardstick(q, k, v, want):
         except (TypeError, RuntimeError) as e:  # enable_gqa: torch >= 2.5
             print(f"  sdpa {variant}: not available ({e})")
             continue
-        by_name = _device_ms(fn)
+        by_name = device_ms(fn, PROFILE_ITERS)
         ms = sum(by_name.values())
         names = " ".join(by_name).lower()
         backend = next((name for key, name in (
@@ -612,17 +586,18 @@ def attention_phase(dtype=torch.float32):
         bound_ms, bound_by = _bound(_nbytes(q, k, v, out_k),
                                     4 * b * h * n * j * d, ops_per_s)
         times[name] = {
-            "ms": _named_ms(_device_ms(lambda: imagen_attention_cuda(q, k, v)),
-                            kernel),
-            "event_ms": _time_ms(lambda: imagen_attention_cuda(q, k, v)),
-            "plain_ms": sum(_device_ms(
-                lambda: imagen_attention_plain(q, k, v)).values()),
-            "plain_event_ms": _time_ms(
-                lambda: imagen_attention_plain(q, k, v)),
+            "ms": named_ms(device_ms(lambda: imagen_attention_cuda(q, k, v),
+                                     PROFILE_ITERS), kernel),
+            "event_ms": event_ms(lambda: imagen_attention_cuda(q, k, v),
+                                 TIMING_ITERS),
+            "plain_ms": sum(device_ms(lambda: imagen_attention_plain(q, k, v),
+                                      PROFILE_ITERS).values()),
+            "plain_event_ms": event_ms(
+                lambda: imagen_attention_plain(q, k, v), TIMING_ITERS),
             # the autograd backward of the kernel's Function: plain math
-            "plain_backward_ms": sum(_device_ms(
-                lambda: imagen_attention_backward_plain(q, k, v, g))
-                .values()),
+            "plain_backward_ms": sum(device_ms(
+                lambda: imagen_attention_backward_plain(q, k, v, g),
+                PROFILE_ITERS).values()),
             "library_ms": lib_ms, "library_variant": variant,
             "library_backend": backend, "library_max_abs_err": lib_err,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -661,6 +636,172 @@ def attention_phase(dtype=torch.float32):
     return err_max, times
 
 
+GATHER_POINTS = (131072, 2097152)   # the JAX micro's default N, and 16x
+
+
+def row_gather_phase():
+    """K3, the row gather of the JAX micro-benchmark: its entry point
+    (``tools/gather_micro.py``: R in {8192, 16384, 32768}, bf16, the
+    kernel bit-equal to its plain version and timed against one
+    ``index_select``) at N = 131,072 and 2,097,152, with K3's launch count
+    reset just before and read just after (the micro is K3's path); then,
+    not counted, one f32 case (the micro's dtype parameter) and rows whose
+    index lies outside [0, R), which must come back as zeros."""
+    from sparsefusion_tpu_torch.kernels import row_gather as k3
+    from sparsefusion_tpu_torch.ops.row_gather import row_gather_plain
+    from sparsefusion_tpu_torch.tools import gather_micro
+
+    torch.cuda.synchronize()
+    k3.reset_launches()
+    micro = {n: gather_micro.main([str(n)]) for n in GATHER_POINTS}
+    torch.cuda.synchronize()
+    launches = k3.row_gather_cuda.launches
+    f32 = gather_micro.run(GATHER_POINTS[0], "cuda", torch.float32, (8192,))
+    table, idx = gather_micro.make_inputs(8192, 4099, "cuda")
+    bad = torch.arange(0, idx.numel(), 97, device="cuda")
+    idx[bad] = torch.tensor([-1, 8192, 2 ** 31 - 1, -2 ** 31],
+                            dtype=torch.int32, device="cuda").repeat(
+        (bad.numel() + 3) // 4)[:bad.numel()]
+    got = k3.row_gather_cuda(table, idx)
+    torch.cuda.synchronize()
+    good = torch.ones_like(idx, dtype=torch.bool)
+    good[bad] = False
+    assert torch.equal(got[bad], torch.zeros_like(got[bad])), \
+        "K3 wrote a row for an index outside the table"
+    assert torch.equal(got[good], row_gather_plain(table, idx[good]))
+    print(f"K3: {bad.numel()} of {idx.numel()} indices outside [0, 8192) "
+          "gave rows of zeros, the rest the table's rows")
+    cases = [r for n in GATHER_POINTS for r in micro[n].values()] \
+        + list(f32.values())
+    assert all(r["correct"] for r in cases), "K3 disagrees with index_select"
+    err = max(r["max_abs_err"] for r in cases)
+    print(f"K3: launches on the micro's path {launches}; f32 (R=8192): "
+          + json.dumps(f32[8192]))
+    return launches, micro, f32, err
+
+
+def _small_models(rng):
+    """The narrow UNet (64-wide attention heads) and VAE of the steps
+    checks, on the CPU, final conv randomised from ``rng``."""
+    from sparsefusion_tpu_torch.models import build_models
+    from sparsefusion_tpu_torch.nn.unet import UNetConfig
+    from sparsefusion_tpu_torch.nn.vae import VAEConfig
+
+    models = build_models(
+        torch.Generator().manual_seed(0), "cpu",
+        unet_config=UNetConfig(dim=64, dim_mults=(1, 2),
+                               num_resnet_blocks=(1, 1),
+                               layer_attns=(False, True), attn_heads=2,
+                               attn_dim_head=64),
+        vae_config=VAEConfig(ch=32, ch_mult=(1, 1, 2, 2), num_res_blocks=1))
+    with torch.no_grad():   # a zero final conv would hide the UNet
+        fc = models.unet.final_conv
+        fc.weight.copy_(torch.as_tensor(
+            rng.randn(*fc.weight.shape) * 0.05, dtype=torch.float32))
+        fc.bias.copy_(torch.as_tensor(rng.randn(*fc.bias.shape) * 0.05,
+                                      dtype=torch.float32))
+    return models
+
+
+def occupancy_card_check():
+    """The occupancy pieces on the card against the CPU on the same inputs
+    at the loop's grid (128^3, 3 cascades, bound 4):
+    ``tools/card_checks.py::occupancy_card_vs_cpu``, which the card tests
+    also run.  Returns the CPU's bitfield."""
+    from sparsefusion_tpu_torch.tools.card_checks import occupancy_card_vs_cpu
+
+    stats, bitfield = occupancy_card_vs_cpu("cuda")
+    print("occupancy cpu vs cuda: " + json.dumps(stats))
+    return bitfield
+
+
+def small_occupancy_steps_check(bitfield):
+    """The TPU preset's steps (8 x C4 bf16 table, single-pass 32-sample
+    march inside ``bitfield``'s span): one input step on 128 of 256 rays
+    and one subsampled fusion step (no-grad full render, narrow UNet and
+    VAE, 2-step PLMS, gradient on 128 rays) on the card and on the CPU
+    from the same weights and draws, at the steps checks' tolerances
+    (loss 1e-5 / 1e-4 relative, gradients 5e-2 relative Frobenius)."""
+    import copy
+
+    from sparsefusion_tpu_torch.core.cameras import (
+        get_camera_slice,
+        get_relative_cameras,
+    )
+    from sparsefusion_tpu_torch.data.synthetic import make_synthetic_scene
+    from sparsefusion_tpu_torch.distill.loop import (
+        make_ngp_optimizer,
+        make_scene_step_fns,
+        tpu_distill_config,
+    )
+    from sparsefusion_tpu_torch.nn.ngp import NGPField
+    from sparsefusion_tpu_torch.render.volume import VolumeRendererConfig
+
+    cfg = tpu_distill_config(max_ray_batch=256, input_rays=128,
+                             fusion_rays=128, plms_steps=2)
+    vcfg = VolumeRendererConfig(num_steps=32, upsample_steps=32,
+                                max_ray_batch=256, march_steps=32)
+    scene = make_synthetic_scene(n_views=2, image_size=32, seed=0)
+    rng = np.random.RandomState(1)
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32)
+
+    draws_in = {"ray_idx": torch.as_tensor(rng.randint(0, 256, 128)),
+                "jitter": f32(rng.rand(128, 32))}
+    draws_f = {"jitter": f32(rng.rand(256, 32)),
+               "fusion_ray_idx": torch.as_tensor(rng.randint(0, 256, 128)),
+               "fusion_jitter": f32(rng.rand(128, 32))}
+    plms_noise = [f32(rng.randn(1, 4, 4, 4)) for _ in range(4)]
+    features = f32(rng.randn(256, 4, 4))
+    mt = 0.6
+    models_cpu = _small_models(rng)
+    init = NGPField(cfg.ngp, generator=torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        models = copy.deepcopy(models_cpu)
+        for m in (models.eft, models.vae, models.unet):
+            m.to(dev)
+        field = NGPField(cfg.ngp, device=dev)
+        field.load_state_dict(init.state_dict())
+        steps = make_scene_step_fns(field, cfg, make_ngp_optimizer(cfg, field),
+                                    16, 32, models=models)
+        assert steps.subsample_fusion
+        cams = get_relative_cameras(scene.cameras(dev), [0],
+                                    center_at_origin=False)
+        bits = bitfield.to(dev)
+        res = {}
+        for name, fn, args, draws in (
+                ("march input", steps.input_losses,
+                 (get_camera_slice(cams, [0]),
+                  torch.as_tensor(scene.images[0], device=dev),
+                  torch.as_tensor(scene.masks[0], device=dev)), draws_in),
+                ("subsampled fusion", steps.fusion_losses,
+                 (get_camera_slice(cams, [1]), features.to(dev), mt),
+                 dict(draws_f, plms_noise=plms_noise))):
+            field.zero_grad()
+            loss = fn(vcfg, *args, draws={
+                k: ([t.to(dev) for t in v] if isinstance(v, list)
+                    else v.to(dev)) for k, v in draws.items()},
+                bitfield=bits)
+            loss.backward()
+            res[name] = (loss.item(), {n: p.grad.cpu().clone()
+                                       for n, p in field.named_parameters()})
+        out[dev] = res
+    stats = {}
+    for name, loss_tol in (("march input", 1e-5), ("subsampled fusion", 1e-4)):
+        (l_c, g_c), (l_g, g_g) = out["cpu"][name], out["cuda"][name]
+        stats[f"{name} loss_rel"] = abs(l_c - l_g) / abs(l_c)
+        stats[f"{name} grad_rel_max"] = max(
+            ((g_c[n] - g_g[n]).norm() / g_c[n].norm()).item() for n in g_c)
+        print(f"{name} step (TPU preset) cpu vs cuda: loss {l_c:.7f} vs "
+              f"{l_g:.7f}; worst gradient {stats[f'{name} grad_rel_max']:.3e}")
+        assert stats[f"{name} loss_rel"] <= loss_tol, name
+        assert stats[f"{name} grad_rel_max"] <= 5e-2, name
+        assert all(torch.isfinite(g).all() for g in g_g.values())
+    return stats
+
+
 def small_diffusion_steps_check(sampler_bf16=False):
     """One bootstrap step and one fusion step (narrow UNet and VAE with
     64-wide attention heads, randomised final conv, 2-step PLMS) on the
@@ -681,10 +822,7 @@ def small_diffusion_steps_check(sampler_bf16=False):
         make_ngp_optimizer,
         make_scene_step_fns,
     )
-    from sparsefusion_tpu_torch.models import build_models
     from sparsefusion_tpu_torch.nn.ngp import NGPField
-    from sparsefusion_tpu_torch.nn.unet import UNetConfig
-    from sparsefusion_tpu_torch.nn.vae import VAEConfig
     from sparsefusion_tpu_torch.render.volume import VolumeRendererConfig
 
     cfg = DistillConfig(max_ray_batch=256, plms_steps=2,
@@ -702,19 +840,7 @@ def small_diffusion_steps_check(sampler_bf16=False):
     features = torch.as_tensor(rng.randn(256, 4, 4), dtype=torch.float32)
     eft_img = torch.as_tensor(rng.rand(32, 32, 3), dtype=torch.float32)
 
-    models_cpu = build_models(
-        torch.Generator().manual_seed(0), "cpu",
-        unet_config=UNetConfig(dim=64, dim_mults=(1, 2),
-                               num_resnet_blocks=(1, 1),
-                               layer_attns=(False, True), attn_heads=2,
-                               attn_dim_head=64),
-        vae_config=VAEConfig(ch=32, ch_mult=(1, 1, 2, 2), num_res_blocks=1))
-    with torch.no_grad():   # a zero final conv would hide the UNet
-        fc = models_cpu.unet.final_conv
-        fc.weight.copy_(torch.as_tensor(
-            rng.randn(*fc.weight.shape) * 0.05, dtype=torch.float32))
-        fc.bias.copy_(torch.as_tensor(rng.randn(*fc.bias.shape) * 0.05,
-                                      dtype=torch.float32))
+    models_cpu = _small_models(rng)
     init = NGPField(cfg.ngp, generator=torch.Generator().manual_seed(0))
     out = []
     for dev in ("cpu", "cuda"):
@@ -817,7 +943,7 @@ def unet_eval_profile(n_evals=PROFILE_ITERS):
             run(n_evals)
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - t0) * 1e3 / n_evals
-            per_eval, prof, _ = _profile_window(lambda: run(n_evals),
+            per_eval, prof, _ = profile_window(lambda: run(n_evals),
                                                 n_evals)
         launches = sum(e.count for e in prof.key_averages()
                        if e.key in per_eval) / n_evals
@@ -852,10 +978,16 @@ DEMO_ARGV = ["-d", "synthetic", "-c", "any", "-i", "0", "-v", "2",
              "20", "--device", "cuda"]
 
 
-def _bf16_sampler_demo(exp_dir):
-    """The demo's scene loop through ``distillation_loop`` with
-    ``DistillConfig(sampler_bf16=True)`` (the JAX demo CLI has no flag for
-    it): the CLI's models, scene, views and generator."""
+# the TPU preset's diffusion run: occupancy from iteration 10, marching
+# and the subsampled fusion step both live within 40 iterations
+TPU_DIFFUSION_KW = dict(occupancy_start=10, occupancy_update_every=8)
+
+
+def _loop_demo(argv, variant):
+    """The demo's scene loop through ``distillation_loop`` with the CLI's
+    models, scene, views and generator, and ``DistillConfig(sampler_bf16=
+    True)`` (``variant`` "bf16_sampler"; the JAX demo CLI has no flag for
+    it) or ``tpu_distill_config(**TPU_DIFFUSION_KW)`` ("tpu")."""
     from sparsefusion_tpu_torch.cli.demo import (
         build_trio,
         load_dataset,
@@ -865,9 +997,11 @@ def _bf16_sampler_demo(exp_dir):
     from sparsefusion_tpu_torch.distill.loop import (
         DistillConfig,
         distillation_loop,
+        tpu_distill_config,
     )
 
-    args = parse_args(DEMO_ARGV + ["--exp_dir", exp_dir])
+    args = parse_args(argv)
+    exp_dir = args.exp_dir
     for sub in ("log", "metrics", "render_imgs", "render_gifs"):
         os.makedirs(os.path.join(exp_dir, sub), exist_ok=True)
     device = torch.device("cuda")
@@ -876,29 +1010,38 @@ def _bf16_sampler_demo(exp_dir):
     input_idx = select_input_views(args.val_seed, 0, len(scene),
                                    args.context_views)
     scene.sequence_name = f"any_000_c{len(input_idx)}"
-    cfg = DistillConfig(max_itr=args.max_itr,
-                        start_fusion_step=args.start_fusion,
-                        sampler_bf16=True)
+    if variant == "tpu":
+        cfg = tpu_distill_config(max_itr=args.max_itr,
+                                 start_fusion_step=args.start_fusion,
+                                 **TPU_DIFFUSION_KW)
+    else:
+        cfg = DistillConfig(max_itr=args.max_itr,
+                            start_fusion_step=args.start_fusion,
+                            sampler_bf16=True)
     generator = torch.Generator(device=device).manual_seed(args.val_seed)
     return [distillation_loop(models, scene, input_idx, cfg, generator,
                               save_dir=exp_dir)]
 
 
-def diffusion_main_path(sampler_bf16=False):
-    """The full-width diffusion demo, 40 iterations, fusion after 20:
-    through ``cli/demo.py::main``, or with ``sampler_bf16`` through
-    ``distillation_loop`` with the bf16 sampler."""
+def diffusion_main_path(variant="f32", max_itr=40):
+    """The full-width diffusion demo, ``max_itr`` iterations, fusion after
+    20: through ``cli/demo.py::main`` (``variant`` "f32"), or through
+    ``distillation_loop`` with the bf16 sampler ("bf16_sampler") or the
+    TPU preset ("tpu": occupancy from iteration 10, single-pass marching,
+    4096-ray input and fusion gradient steps)."""
     from sparsefusion_tpu_torch.cli.demo import main as demo_main
 
+    sampler_bf16 = variant == "bf16_sampler"
     with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_") as exp_dir:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         t0 = time.perf_counter()
-        if sampler_bf16:
-            results = _bf16_sampler_demo(exp_dir)
+        argv = DEMO_ARGV + ["--max_itr", str(max_itr), "--exp_dir", exp_dir]
+        if variant == "f32":
+            results = demo_main(argv)
         else:
-            results = demo_main(DEMO_ARGV + ["--exp_dir", exp_dir])
+            results = _loop_demo(argv, variant)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _read_counts()
@@ -909,23 +1052,32 @@ def diffusion_main_path(sampler_bf16=False):
 
     r = results[0]
     t = np.asarray(r["iter_times"])
+    n_fusion = max_itr - 21                 # iterations 21..max_itr - 1
     boot_its = 20 / (t[20] - t[0])          # iterations 1..20
-    fusion_s = t[39] - t[20]                # iterations 21..39
+    fusion_s = t[max_itr - 1] - t[20]
     stats = {"phase_a_s": r["cache_seconds"], "bootstrap_it_per_s": boot_its,
-             "fusion_it_per_s": 19 / fusion_s,
+             "fusion_it_per_s": n_fusion / fusion_s,
              "unet_evals": r["unet_evals"],
              "unet_evals_per_s": r["unet_evals"] / fusion_s,
              "peak_gib": peak / 2 ** 30, "wall_s": wall,
              "psnr": r["metrics"]["psnr"], "ssim": r["metrics"]["ssim"]}
-    label = "diffusion main path" + (" (bf16 sampler)" if sampler_bf16
-                                     else "")
+    occ, modes = r["occupancy"], r["render_modes"]
+    if variant == "tpu":
+        stats.update({"render_modes": modes,
+                      "fusion_subset_steps": r["fusion_subset_steps"],
+                      "grid_update_itrs": occ["update_itrs"],
+                      "grid_update_s": occ["update_seconds"],
+                      "occupied_share": occ["occupied_share"]})
+    label = "diffusion main path" + {"f32": "", "bf16_sampler":
+                                     " (bf16 sampler)",
+                                     "tpu": " (TPU preset)"}[variant]
     print(f"{label}: " + json.dumps(stats))
     print(f"{label}: launches {json.dumps(launches)}; "
           f"files {json.dumps(written)}")
     losses = np.asarray(r["losses"])
     fl = np.asarray(r["fusion_losses"])
-    assert len(losses) == 40 and np.isfinite(losses).all()
-    assert len(fl) == 40 and np.isfinite(fl).all()
+    assert len(losses) == max_itr and np.isfinite(losses).all()
+    assert len(fl) == max_itr and np.isfinite(fl).all()
     assert written["metrics/any_000_c2.txt"] and written["any_000_c2_ngp.npz"]
     assert r["renders"].shape == (10, 256, 256, 3)
     assert np.isfinite(r["renders"]).all()
@@ -935,6 +1087,80 @@ def diffusion_main_path(sampler_bf16=False):
     assert launches["imagen_attention"] == 3 * r["unet_evals"], launches
     assert launches["imagen_attention_bf16"] == (
         launches["imagen_attention"] if sampler_bf16 else 0), launches
+    if variant == "tpu":
+        # marching from the first grid update on (the preset sets no
+        # polish tail), and the fusion gradient steps on ray subsets
+        # (iterations 21..max_itr - 1)
+        start = TPU_DIFFUSION_KW["occupancy_start"]
+        assert occ["update_itrs"] == list(range(
+            start, max_itr, TPU_DIFFUSION_KW["occupancy_update_every"])), occ
+        assert modes == {"two_phase": start, "march": max_itr - start}, modes
+        assert r["fusion_subset_steps"] == n_fusion, r["fusion_subset_steps"]
+        assert launches["grid_encode_fwd_bf16"] == \
+            launches["grid_encode_fwd"], launches
+    else:
+        assert occ is None and modes["march"] == 0, modes
+        assert r["fusion_subset_steps"] == 0
+    return launches, stats
+
+
+def tpu_ngp_main_path():
+    """The TPU preset's NGP-only demo at full width through the CLI
+    (``--preset tpu --no_diffusion``, 256 px, 600 iterations: occupancy
+    from iteration 500, so 7 grid updates and 100 marching iterations).
+    K1's 8 x C4 bf16 instance must carry every forward launch."""
+    from sparsefusion_tpu_torch.cli.demo import main as demo_main
+
+    with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_") as exp_dir:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        results = demo_main([
+            "-d", "synthetic", "-c", "any", "-i", "0", "-v", "2",
+            "--image_size", "256", "--max_itr", "600", "--no_diffusion",
+            "--preset", "tpu", "--device", "cuda", "--exp_dir", exp_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        files_ok = os.path.exists(os.path.join(exp_dir, "metrics",
+                                               "any_000_c2.txt"))
+
+    r = results[0]
+    losses = np.asarray(r["losses"])
+    t = np.asarray(r["iter_times"])
+    occ = r["occupancy"]
+    start = occ["update_itrs"][0] if occ["update_itrs"] else len(t)
+    # grid updates inside the marching window (iterations start+1 ..)
+    upd_after = sum(s for i, s in zip(occ["update_itrs"],
+                                      occ["update_seconds"]) if i > start)
+    stats = {
+        "it_per_s_two_phase": (start - 1) / (t[start - 1] - t[0]),
+        "it_per_s_march": (len(t) - 1 - start) / (t[-1] - t[start]),
+        "it_per_s_march_without_grid_updates":
+            (len(t) - 1 - start) / (t[-1] - t[start] - upd_after),
+        "grid_update_itrs": occ["update_itrs"],
+        "grid_update_s": occ["update_seconds"],
+        "occupied_share": occ["occupied_share"],
+        "render_modes": r["render_modes"], "peak_gib": peak / 2 ** 30,
+        "wall_s": wall, "psnr": r["metrics"]["psnr"],
+        "ssim": r["metrics"]["ssim"],
+        "loss_first10": float(losses[:10].mean()),
+        "loss_last10": float(losses[-10:].mean())}
+    print("TPU preset NGP-only main path: " + json.dumps(stats))
+    print(f"TPU preset NGP-only main path: launches {json.dumps(launches)}")
+    assert len(losses) == 600 and np.isfinite(losses).all()
+    assert stats["psnr"] >= 15.0, f"eval psnr {stats['psnr']} < 15"
+    assert len(occ["update_itrs"]) >= 1 and occ["update_itrs"][0] == 500
+    assert 0.0 < occ["occupied_share"][0] < 1.0, occ["occupied_share"]
+    # marching from the first grid update (iteration 500) on
+    assert r["render_modes"] == {"two_phase": 500, "march": 100}, \
+        r["render_modes"]
+    assert launches["grid_encode_fwd_bf16"] > 0
+    assert launches["grid_encode_fwd_bf16"] == launches["grid_encode_fwd"]
+    assert launches["grid_encode_bwd"] > 0
+    assert files_ok and np.isfinite(r["renders"]).all()
     return launches, stats
 
 
@@ -1143,11 +1369,14 @@ def _reset_counts():
 
 def _read_counts():
     """Launches since the last reset; ``imagen_attention`` counts both of
-    K2's instances, ``imagen_attention_bf16`` the bf16 one."""
+    K2's instances, ``imagen_attention_bf16`` the bf16 one;
+    ``grid_encode_fwd_bf16`` K1 forward's launches on a bf16 table."""
     from sparsefusion_tpu_torch.kernels import attention, grid_encode
 
     torch.cuda.synchronize()
     return {"grid_encode_fwd": grid_encode.grid_encode_cuda.launches,
+            "grid_encode_fwd_bf16":
+                grid_encode.grid_encode_cuda.launches_bf16,
             "grid_encode_bwd": grid_encode.grid_encode_cuda_backward.launches,
             "imagen_attention": attention.imagen_attention_cuda.launches,
             "imagen_attention_bf16":
@@ -1319,7 +1548,7 @@ def train_step_profile(counts, precision="float32", reference=None,
 
     # kernels alone first (the device timeline by kernel name), then the
     # same steps with the host ops, whose device time falls into ranges
-    per_step, _, host_ms = _profile_window(
+    per_step, _, host_ms = profile_window(
         lambda: run(PROFILE_TRAIN_STEPS), PROFILE_TRAIN_STEPS, reset=reset)
     launches = _read_counts()
     unet_forwards = models.unet_evals - evals0[0]
@@ -1439,6 +1668,29 @@ def _k2_entry(name, source, attn_err, attn_times, by_path, profile):
             for shape, t in attn_times.items()}}
 
 
+def _k3_entry(launches, micro, f32, err, k1_warp_sectors_per_s):
+    """K3 in the kernels line: the 2,097,152-row case at R = 8192, bf16
+    (its output, 16x the JAX micro's default, is ten times the L2) first,
+    every case under ``cases``."""
+    head = micro[GATHER_POINTS[1]][8192]
+    keys = ("rows", "ms", "event_ms", "index_select_ms", "bound_ms",
+            "bound_share", "sectors_per_s", "max_abs_err")
+    cases = {f"N{n}_R{r}": {key: c[key] for key in keys}
+             for n, by_r in micro.items() for r, c in by_r.items()}
+    cases["N131072_R8192_f32"] = {key: f32[8192][key] for key in keys}
+    return {
+        "name": "row_gather", "route": "cuda",
+        "source": "sparsefusion_tpu_torch/csrc/row_gather.cu",
+        "replaces": "benchmarks/pallas_gather_micro.py:44",
+        "launches": launches, "launches_by_path": {"gather_micro": launches},
+        "max_abs_err": err, "ms": head["ms"], "event_ms": head["event_ms"],
+        "plain_ms": head["index_select_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["index_select_ms"],
+        "sectors_per_s": head["sectors_per_s"],
+        "k1_fwd_warp_sectors_per_s_ray_points": k1_warp_sectors_per_s,
+        "cases": cases}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -1466,32 +1718,55 @@ def main(argv=None) -> int:
     sass = _build.sass_counts()
     print("sass opcode counts: " + json.dumps(sass))
 
+    _mark("build")
     errs, times = kernel_phase()
+    _mark("K1 kernel phase")
     attn_err, attn_times = attention_phase(torch.float32)
     bf16_err, bf16_times = attention_phase(torch.bfloat16)
-    step_stats = input_step_profile()
+    _mark("K2 kernel phase")
+    k3_launches, k3_micro, k3_f32, k3_err = row_gather_phase()
+    _mark("K3 kernel phase")
+    step_stats = input_step_profile()["reference"]
+    _mark("input step profile")
     if args.kernels_only:
         print(json.dumps({"kernel_times": times, "attention": attn_times,
                           "attention_bf16": bf16_times,
+                          "row_gather": {str(n): m for n, m in
+                                         k3_micro.items()},
                           "input_step": step_stats}))
         return 0
     for instance in ("imagen_attention_fwd", "imagen_attention_bf16_fwd"):
         assert any(c["HMMA"] > 0 for f, c in sass.items()
                    if instance in f), f"K2's {instance} issues no HMMA"
+    input_step_profile("tpu")
+    _mark("TPU preset input step profile")
     small_input_step_check()
     small_diffusion_steps_check()
     small_diffusion_steps_check(sampler_bf16=True)
+    _mark("steps card vs CPU")
+    small_occupancy_steps_check(occupancy_card_check())
+    _mark("occupancy card vs CPU")
     ngp_launches, _ = main_path()
+    tpu_ngp_launches, _ = tpu_ngp_main_path()
+    _mark("NGP-only demos")
     launches, _ = diffusion_main_path()
-    bf16_launches, _ = diffusion_main_path(sampler_bf16=True)
+    # 30 iterations: 9 fusion iterations where the others run 19, which
+    # keeps the whole run within the time it took before the TPU preset's
+    # paths were added
+    bf16_launches, _ = diffusion_main_path("bf16_sampler", max_itr=30)
+    tpu_launches, _ = diffusion_main_path("tpu")
+    _mark("diffusion demos")
     unet_eval_profile()
+    _mark("UNet evaluation profile")
     small_train_step_check()
     small_train_step_check("bfloat16")
+    _mark("train steps card vs CPU")
     from sparsefusion_tpu_torch.tools.flops import train_step_counts
 
     counts = train_step_counts()
     train_launches, _ = train_main_path(counts)
     bf16_train_launches, _ = train_main_path(counts, bf16=True)
+    _mark("train main paths")
     profiles = {}
     reference = None
     for precision in ("float32", "tf32", "bfloat16"):
@@ -1500,6 +1775,7 @@ def main(argv=None) -> int:
         if reference is None:
             reference = first
     del reference
+    _mark("train step profiles")
     print("train step profiles: " + json.dumps({
         p: {key: s[key] for key in ("device_ms_per_step", "host_ms_per_step",
                                     "bound_ms", "bound_share",
@@ -1509,7 +1785,9 @@ def main(argv=None) -> int:
                           "grid_encode_bwd": ngp_launches["grid_encode_bwd"]},
              "diffusion_demo": launches, "train": train_launches,
              "diffusion_demo_bf16_sampler": bf16_launches,
-             "train_bf16": bf16_train_launches}
+             "train_bf16": bf16_train_launches,
+             "tpu_preset_ngp_demo": tpu_ngp_launches,
+             "tpu_preset_diffusion_demo": tpu_launches}
 
     def by_path(name, bf16=None):
         out = {}
@@ -1557,6 +1835,8 @@ def main(argv=None) -> int:
         _k2_entry("imagen_attention_bf16", k2_src, bf16_err, bf16_times,
                   by_path("imagen_attention", bf16=True),
                   profiles["bfloat16"]),
+        _k3_entry(k3_launches, k3_micro, k3_f32, k3_err,
+                  tr["fwd_warp_sectors_per_s"]),
     ]
     assert all(math.isfinite(k["ms"]) for k in kernels)
     assert all(k["launches"] > 0 for k in kernels), \

@@ -13,9 +13,14 @@ when no EFT checkpoint is given).  ``--no_diffusion`` runs the NGP-only
 path.  On ``--device cpu`` the UNet and VAE are the narrow test models
 (``models.narrow_model_configs``): the CPU path is for tests and
 rehearsals, and the full-width UNet needs latents of 8 x 8 or more.
-LPIPS, ``--preset tpu`` and ``--scene_batch > 1`` raise
-``NotImplementedError`` naming their ROADMAP item; ``--no_fused`` and
-``-g`` / ``-p`` are accepted and change nothing.  With ``--device cuda``
+``--preset tpu`` runs the JAX package's TPU preset
+(``distill/loop.py::tpu_distill_config``: 8 x C4 bf16 tables, occupancy
+grid, single-pass marching, 4096-ray input and fusion gradient steps);
+``--preset auto`` picks it, as the JAX demo does, only on a TPU backend,
+so here always ``reference`` (``DistillConfig()``).  LPIPS and
+``--scene_batch > 1`` raise ``NotImplementedError`` naming their ROADMAP
+item; ``--no_fused`` and ``-g`` / ``-p`` are accepted and change
+nothing.  With ``--device cuda``
 and no CUDA device the demo raises; it never continues on the CPU.
 
 Several processes (``SF_COORDINATOR`` / ``SF_NUM_PROCESSES`` /
@@ -62,8 +67,9 @@ def parse_args(argv=None):
     p.add_argument("--preset", type=str, default="auto",
                    choices=["auto", "reference", "tpu"],
                    help="'reference' = the torch-ngp recipe, DistillConfig(); "
-                        "'tpu' = the TPU preset (needs occupancy, not "
-                        "ported yet); 'auto' = reference")
+                        "'tpu' = the TPU preset, tpu_distill_config() "
+                        "(occupancy grid, single-pass marching); 'auto' = "
+                        "'tpu' on a TPU backend only, so 'reference'")
     p.add_argument("--no_fused", action="store_true",
                    help="accepted for compatibility; the port has no "
                         "fused dispatch programs")
@@ -166,9 +172,9 @@ def main(argv=None):
     from sparsefusion_tpu_torch.cli.check_args import check_args
     from sparsefusion_tpu_torch.distill.loop import (
         NOT_PORTED_LPIPS,
-        NOT_PORTED_OCCUPANCY,
         DistillConfig,
         distillation_loop,
+        tpu_distill_config,
     )
 
     from sparsefusion_tpu_torch.parallel.mesh import (
@@ -184,8 +190,6 @@ def main(argv=None):
     device = resolve_device(args.device)
     if args.lpips_weights is not None:
         raise NotImplementedError(NOT_PORTED_LPIPS)
-    if args.preset == "tpu":
-        raise NotImplementedError(NOT_PORTED_OCCUPANCY)
     if args.scene_batch > 1:
         raise NotImplementedError(
             "scene batches (distill/batched.py) are not ported yet: "
@@ -205,8 +209,10 @@ def main(argv=None):
 
     models = None if args.no_diffusion else build_trio(args, device)
     dataset = load_dataset(args, device)
-    cfg = DistillConfig(max_itr=args.max_itr,
-                        start_fusion_step=args.start_fusion)
+    # the JAX demo's 'auto' picks the TPU preset on a TPU backend only
+    preset = "reference" if args.preset == "auto" else args.preset
+    make_cfg = tpu_distill_config if preset == "tpu" else DistillConfig
+    cfg = make_cfg(max_itr=args.max_itr, start_fusion_step=args.start_fusion)
 
     results = []
     for val_idx in val_list:

@@ -15,15 +15,25 @@ Counterpart of ``sparsefusion_tpu/distill/loop.py``:
 * Phase C — eval: full-resolution renders of every scene camera,
   PSNR/SSIM, an orbit of ``n_aug_cameras`` renders, outputs saved.
 
-The fusion step renders once and feeds a detached copy to the VAE; the
-JAX package renders twice with one key, which gives the same image, loss
-and gradients.  ``sampler_bf16`` runs the sampler's UNet in bf16 on a
-bf16 copy of its weights (``models.py::SparseFusionModels.unet_half``);
-the sampler's own arithmetic, the VAE and the EFT stay f32, as in the JAX
-package.  Occupancy-guided sampling, LPIPS and the TPU preset's
-subsampled fusion step (``fusion_rays``) are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.  Options that only shaped the JAX package's
-dispatch (``fused_steps``, ``plms_host_loop``, ``plms_scan_tail``,
+With ``use_occupancy`` (the TPU preset, :func:`tpu_distill_config`) every
+render's [near, far] is tightened to the occupied span of an occupancy
+grid (``render/occupancy.py``), all-occupied until ``occupancy_start``
+and then updated every ``occupancy_update_every`` iterations, before the
+iteration's steps.  With ``occ_march_steps`` the renders switch at
+``occupancy_start`` to a single pass of that many samples, and back to
+two-phase sampling from ``polish_start``; Phase C renders in the mode of
+the last iteration.  With ``fusion_rays`` below ``render_hw^2`` the
+fusion step renders the full image without gradient for the sampler and
+takes its gradient on ``fusion_rays`` random rays against the bilinearly
+downsampled target.  Without it the fusion step renders once and feeds
+a detached copy to the VAE; the JAX package renders twice with one key,
+which gives the same image, loss and gradients.  ``sampler_bf16`` runs
+the sampler's UNet in bf16 on a bf16 copy of its weights
+(``models.py::SparseFusionModels.unet_half``); the sampler's own
+arithmetic, the VAE and the EFT stay f32, as in the JAX package.  LPIPS
+is not ported yet and raises ``NotImplementedError`` naming its ROADMAP
+item.  Options that only shaped the JAX package's dispatch
+(``fused_steps``, ``plms_host_loop``, ``plms_scan_tail``,
 ``loss_fetch_every``) are accepted and ignored: the port runs eagerly
 and reads the losses every iteration.
 """
@@ -57,6 +67,11 @@ from sparsefusion_tpu_torch.nn.ngp import (
 )
 from sparsefusion_tpu_torch.ops.image import resize_bilinear, resize_nearest
 from sparsefusion_tpu_torch.render.lightfield import render_light_field
+from sparsefusion_tpu_torch.render.occupancy import (
+    OccupancyGrid,
+    cascade_count,
+    occupancy_near_far,
+)
 from sparsefusion_tpu_torch.render.volume import (
     VolumeRendererConfig,
     render_rays_chunked,
@@ -64,14 +79,10 @@ from sparsefusion_tpu_torch.render.volume import (
 from sparsefusion_tpu_torch.utils.image import huber, to_uint8
 from sparsefusion_tpu_torch.utils.metrics import psnr, ssim
 
-NOT_PORTED_OCCUPANCY = (
-    "occupancy-guided sampling (render/occupancy.py, use_occupancy, "
-    "--preset tpu) is not ported yet: ROADMAP.md section 1, head of the "
-    "queue")
 NOT_PORTED_LPIPS = "LPIPS is not ported yet: ROADMAP.md section 1, item 10"
-NOT_PORTED_FUSION_RAYS = (
-    "the subsampled fusion step (fusion_rays, part of the TPU preset) is "
-    "not ported yet: ROADMAP.md section 1, head of the queue")
+# the occupancy grid's cells a side (OccupancyGrid's default, which the
+# JAX loop uses)
+OCC_GRID_SIZE = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,10 +150,13 @@ class DistillConfig:
 
 
 def tpu_distill_config(**overrides) -> DistillConfig:
-    """The JAX package's TPU preset, under the same name: 8 x C4 bf16
-    tables, occupancy-guided 32+32 sampling then 32-step marching, one
-    16k-ray chunk, 4096-ray input steps.  It needs occupancy, which the
-    port does not have yet, so the loop refuses it for now."""
+    """The JAX package's TPU preset, under the same name and with the same
+    fields: 8 x C4 tables read in bf16, occupancy-guided 32+32 two-phase
+    sampling until ``occupancy_start``, then single-pass 32-sample
+    marching inside the occupied span, one 16,384-ray chunk, stored render
+    activations instead of recomputing them (``remat=False``), 4096-ray
+    input and bootstrap steps, and fusion gradient steps on 4096 rays.
+    Its speed on the card against ``DistillConfig()`` is in PERF.md."""
     base = dict(
         ngp=NGPConfig(num_levels=8, level_dim=4, table_dtype="bfloat16"),
         use_occupancy=True,
@@ -191,9 +205,10 @@ def _render_cam(field: NGPField, cam: Cameras, hw: int,
                 generator: Optional[torch.Generator] = None,
                 ray_idx: Optional[torch.Tensor] = None, remat: bool = True,
                 jitter: Optional[torch.Tensor] = None,
-                u: Optional[torch.Tensor] = None):
+                u: Optional[torch.Tensor] = None, near_far_fn=None):
     """Render a camera; with ``ray_idx`` (K,) only those grid rays.
-    ``jitter`` / ``u`` are the renderer's draws for the rays rendered."""
+    ``jitter`` / ``u`` are the renderer's draws for the rays rendered;
+    ``near_far_fn`` tightens each ray's [near, far]."""
     bundle = grid_ray_bundle(cam, hw, hw, 2, 1.0, 2.0)
     o = bundle.origins.reshape(-1, 3)
     d = bundle.directions.reshape(-1, 3)
@@ -204,7 +219,7 @@ def _render_cam(field: NGPField, cam: Cameras, hw: int,
     out = render_rays_chunked(field, o, d, vcfg, perturb=perturb,
                               det_importance=False, bg_color=0.0,
                               remat=remat, bg_fn=bg_fn, generator=generator,
-                              jitter=jitter, u=u)
+                              jitter=jitter, u=u, near_far_fn=near_far_fn)
     if ray_idx is not None:
         return out["image"], out["weights_sum"][:, None]
     return out["image"].reshape(hw, hw, 3), out["weights_sum"].reshape(
@@ -226,11 +241,16 @@ class SceneSteps:
 
     ``draws`` is an optional dict with the random numbers a step would
     otherwise take from its generator: ``ray_idx`` (input_rays,) when the
-    step renders a ray subset, ``jitter`` (K, num_steps) and ``u``
-    (K, upsample_steps) for the K rays rendered, and for the fusion step
+    step renders a ray subset, ``jitter`` (K, steps) and ``u`` (K,
+    upsample_steps) for the K rays rendered, and for the fusion step
     ``plms_noise``, the sampler's normal draws in the order
-    ``diffusion/plms.py`` takes them.  ``models`` (the EFT/VAE/UNet
-    bundle) is needed by the fusion step only.
+    ``diffusion/plms.py`` takes them; the subsampled fusion step's
+    gradient render takes ``fusion_ray_idx`` (fusion_rays,),
+    ``fusion_jitter`` and ``fusion_u``.  ``bitfield`` is the occupancy
+    grid's (``render/occupancy.py``); with ``cfg.use_occupancy`` every
+    render tightens its rays' [near, far] to the occupied span.
+    ``models`` (the EFT/VAE/UNet bundle) is needed by the fusion step
+    only.
     """
 
     def __init__(self, field: NGPField, cfg: DistillConfig,
@@ -242,25 +262,38 @@ class SceneSteps:
         self.render_hw = render_hw
         self.image_size = image_size
         self.models = models
+        self.occ_cascade = cascade_count(cfg.bound)
+        # the perceptual term (LPIPS) is not ported, so it is never active
+        self.subsample_fusion = bool(cfg.fusion_rays) \
+            and cfg.fusion_rays < render_hw * render_hw
 
-    def _ray_subset(self, generator, draws):
-        cfg, hw = self.cfg, self.render_hw
-        if not cfg.input_rays or cfg.input_rays >= hw * hw:
+    def make_nff(self, bitfield: Optional[torch.Tensor]):
+        """The renderer's near/far hook for ``bitfield``, or None."""
+        cfg = self.cfg
+        if not cfg.use_occupancy or bitfield is None:
             return None
-        if "ray_idx" in draws:
-            return draws["ray_idx"].to(self.field.grid.device)
-        return torch.randint(0, hw * hw, (cfg.input_rays,),
-                             generator=generator,
+        return lambda o, d, n, f: occupancy_near_far(
+            bitfield, o, d, n, f, cfg.bound, OCC_GRID_SIZE,
+            self.occ_cascade, cfg.occupancy_probe)[:2]
+
+    def _ray_subset(self, generator, draws, n_rays, key="ray_idx"):
+        hw = self.render_hw
+        if not n_rays or n_rays >= hw * hw:
+            return None
+        if key in draws:
+            return draws[key].to(self.field.grid.device)
+        return torch.randint(0, hw * hw, (n_rays,), generator=generator,
                              device=self.field.grid.device)
 
     def input_losses(self, vc: VolumeRendererConfig, cam: Cameras,
                      gt_rgb: torch.Tensor, gt_mask: Optional[torch.Tensor],
                      generator: Optional[torch.Generator] = None,
-                     draws: Optional[Dict[str, torch.Tensor]] = None):
+                     draws: Optional[Dict[str, torch.Tensor]] = None,
+                     bitfield: Optional[torch.Tensor] = None):
         cfg, hw = self.cfg, self.render_hw
         draws = draws or {}
-        ray_idx = self._ray_subset(generator, draws)
-        img, sil = self._render(vc, cam, generator, draws, ray_idx)
+        ray_idx = self._ray_subset(generator, draws, cfg.input_rays)
+        img, sil = self._render(vc, cam, generator, draws, ray_idx, bitfield)
         gt_rgb_ds = resize_nearest(gt_rgb[None], (hw, hw))[0]
         loss = cfg.lambda_color * huber(
             img, _at_rays(gt_rgb_ds, ray_idx)).abs().mean()
@@ -272,17 +305,18 @@ class SceneSteps:
             loss = loss + cfg.lambda_opacity * _opacity(sil)
         return loss
 
-    def _render(self, vc, cam, generator, draws, ray_idx=None):
+    def _render(self, vc, cam, generator, draws, ray_idx=None, bitfield=None):
         return _render_cam(self.field, cam, self.render_hw, vc, perturb=True,
                            generator=generator, ray_idx=ray_idx,
                            remat=self.cfg.remat, jitter=draws.get("jitter"),
-                           u=draws.get("u"))
+                           u=draws.get("u"),
+                           near_far_fn=self.make_nff(bitfield))
 
-    def _update(self, losses_fn, *args) -> torch.Tensor:
+    def _update(self, losses_fn, *args, **kwargs) -> torch.Tensor:
         """Loss, gradient and Adam update, in place on the field's
         parameters.  Returns the (detached) loss."""
         self.optimizer.zero_grad()
-        loss = losses_fn(*args)
+        loss = losses_fn(*args, **kwargs)
         loss.backward()
         self.optimizer.step()
         return loss.detach()
@@ -290,41 +324,45 @@ class SceneSteps:
     def input_step(self, vc: VolumeRendererConfig, cam: Cameras,
                    gt_rgb: torch.Tensor, gt_mask: Optional[torch.Tensor],
                    generator: Optional[torch.Generator] = None,
-                   draws: Optional[Dict[str, torch.Tensor]] = None
-                   ) -> torch.Tensor:
+                   draws: Optional[Dict[str, torch.Tensor]] = None,
+                   bitfield: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self._update(self.input_losses, vc, cam, gt_rgb, gt_mask,
-                            generator, draws)
+                            generator, draws, bitfield)
 
-    def render_up(self, vc, cam, generator=None, draws=None):
+    def render_up(self, vc, cam, generator=None, draws=None, bitfield=None):
         """Full-grid render at render_hw, bilinearly upsampled to
         image_size: image (H, W, 3) and silhouette (H, W, 1)."""
-        img, sil = self._render(vc, cam, generator, draws or {})
+        img, sil = self._render(vc, cam, generator, draws or {},
+                                bitfield=bitfield)
         size = (self.image_size, self.image_size)
         return (resize_bilinear(img[None], size)[0],
                 resize_bilinear(sil[None], size)[0])
 
-    def bootstrap_losses(self, vc, cam, eft_img, generator=None, draws=None):
+    def bootstrap_losses(self, vc, cam, eft_img, generator=None, draws=None,
+                         bitfield=None):
         """Photometric loss against a cached EFT image, with its
         thresholded mean as the silhouette target."""
         cfg, hw = self.cfg, self.render_hw
         draws = draws or {}
         if cfg.input_rays:
             # ray subset: compare at render_hw with the downsampled target
-            ray_idx = self._ray_subset(generator, draws)
-            img, sil = self._render(vc, cam, generator, draws, ray_idx)
+            ray_idx = self._ray_subset(generator, draws, cfg.input_rays)
+            img, sil = self._render(vc, cam, generator, draws, ray_idx,
+                                    bitfield)
             eft_ds = resize_bilinear(eft_img[None], (hw, hw))[0]
             target = _at_rays(eft_ds, ray_idx)
         else:
-            img, sil = self.render_up(vc, cam, generator, draws)
+            img, sil = self.render_up(vc, cam, generator, draws, bitfield)
             target = eft_img
         noisy_mask = (target.mean(dim=-1, keepdim=True) > 0.1).float()
         return (cfg.lambda_color * huber(img, target).abs().mean()
                 + cfg.lambda_sil * huber(sil, noisy_mask).abs().mean()
                 + cfg.lambda_opacity * _opacity(sil))
 
-    def bootstrap_step(self, vc, cam, eft_img, generator=None, draws=None):
+    def bootstrap_step(self, vc, cam, eft_img, generator=None, draws=None,
+                       bitfield=None):
         return self._update(self.bootstrap_losses, vc, cam, eft_img,
-                            generator, draws)
+                            generator, draws, bitfield)
 
     @torch.no_grad()
     def fusion_target(self, img: torch.Tensor, features: torch.Tensor,
@@ -345,21 +383,50 @@ class SceneSteps:
         return models.vae_decode(pred_x0)[0], 1.0 - alpha_cumprod[0]
 
     def fusion_losses(self, vc, cam, features, max_thres, generator=None,
-                      draws=None):
-        """Render once with gradient; the detached copy goes through
-        :meth:`fusion_target` (the reference samples without gradient)."""
+                      draws=None, bitfield=None):
+        """The fusion step's loss.  Without ray subsampling: render once
+        with gradient and feed the detached copy to :meth:`fusion_target`
+        (the reference samples without gradient).  With it: the full
+        render without gradient feeds the sampler, and
+        :meth:`fusion_subset_losses` takes the gradient on a ray subset."""
         draws = draws or {}
-        img, sil = self.render_up(vc, cam, generator, draws)
+        if self.subsample_fusion:
+            with torch.no_grad():
+                img, _ = self.render_up(vc, cam, generator, draws, bitfield)
+            pred_img, weight = self.fusion_target(
+                img, features, max_thres, generator, draws.get("plms_noise"))
+            return self.fusion_subset_losses(vc, cam, pred_img, weight,
+                                             generator, draws, bitfield)
+        img, sil = self.render_up(vc, cam, generator, draws, bitfield)
         pred_img, weight = self.fusion_target(
             img.detach(), features, max_thres, generator,
             draws.get("plms_noise"))
         return (weight * (img - pred_img).abs().mean()
                 + self.cfg.lambda_opacity * _opacity(sil))
 
+    def fusion_subset_losses(self, vc, cam, pred_img, weight, generator=None,
+                             draws=None, bitfield=None):
+        """The subsampled fusion gradient step's loss: ``fusion_rays``
+        random rays of the render_hw grid (with replacement) against the
+        target ``pred_img`` (H, W, 3) bilinearly resized to render_hw, at
+        those rays.  Draws: ``fusion_ray_idx``, ``fusion_jitter``,
+        ``fusion_u``."""
+        cfg, hw = self.cfg, self.render_hw
+        draws = draws or {}
+        ray_idx = self._ray_subset(generator, draws, cfg.fusion_rays,
+                                   "fusion_ray_idx")
+        img, sil = self._render(vc, cam, generator,
+                                {"jitter": draws.get("fusion_jitter"),
+                                 "u": draws.get("fusion_u")},
+                                ray_idx, bitfield)
+        pred_ds = resize_bilinear(pred_img[None], (hw, hw))[0]
+        return (weight * (img - _at_rays(pred_ds, ray_idx)).abs().mean()
+                + cfg.lambda_opacity * _opacity(sil))
+
     def fusion_step(self, vc, cam, features, max_thres, generator=None,
-                    draws=None):
+                    draws=None, bitfield=None):
         return self._update(self.fusion_losses, vc, cam, features,
-                            max_thres, generator, draws)
+                            max_thres, generator, draws, bitfield)
 
 
 def make_scene_step_fns(field: NGPField, cfg: DistillConfig,
@@ -372,12 +439,40 @@ def make_scene_step_fns(field: NGPField, cfg: DistillConfig,
     return SceneSteps(field, cfg, optimizer, render_hw, image_size, models)
 
 
+def render_schedule(cfg: DistillConfig, vcfg: VolumeRendererConfig):
+    """``active_vcfg(itr)`` of the JAX loop: the render config of
+    iteration ``itr`` (``max_itr`` for Phase C).  Single-pass marching
+    with ``occ_march_steps`` samples from ``occupancy_start`` on, when
+    occupancy is used; two-phase sampling before that and from
+    ``polish_start`` on."""
+    march_on = bool(cfg.use_occupancy and cfg.occ_march_steps)
+    vcfg_march = dataclasses.replace(
+        vcfg, march_steps=int(cfg.occ_march_steps)) if march_on else vcfg
+
+    def active_vcfg(itr: int) -> VolumeRendererConfig:
+        if march_on and cfg.polish_start is not None \
+                and itr >= cfg.polish_start:
+            return vcfg
+        return vcfg_march if (march_on and itr >= cfg.occupancy_start) \
+            else vcfg
+
+    return active_vcfg
+
+
+def occupancy_update_due(cfg: DistillConfig, itr: int) -> bool:
+    """Whether the occupancy grid is updated before iteration ``itr``."""
+    return (cfg.use_occupancy and itr >= cfg.occupancy_start
+            and (itr - cfg.occupancy_start) % cfg.occupancy_update_every == 0)
+
+
 @torch.no_grad()
-def _render_views(field, cams: Cameras, hw: int, vcfg, generator):
+def _render_views(field, cams: Cameras, hw: int, vcfg, generator,
+                  near_far_fn=None):
     imgs, sils = [], []
     for i in range(len(cams)):
         img, sil = _render_cam(field, get_camera_slice(cams, [i]), hw, vcfg,
-                               perturb=True, generator=generator)
+                               perturb=True, generator=generator,
+                               near_far_fn=near_far_fn)
         imgs.append(img.cpu().numpy())
         sils.append(sil.cpu().numpy())
     return np.stack(imgs), np.stack(sils)
@@ -435,15 +530,13 @@ def distillation_loop(
     lpips_fn=None,
 ) -> Dict[str, Any]:
     """Optimize an NGP for one scene on the device of ``generator``, which
-    makes every random draw; returns params, metrics, renders, the losses
-    and the per-iteration host clock.  ``models`` (the bundle of
+    makes every random draw; returns params, metrics, renders, the losses,
+    the per-iteration host clock, the iterations by render mode, the
+    subsampled fusion steps and, with ``cfg.use_occupancy``, the occupancy
+    grid's updates.  ``models`` (the bundle of
     ``models.build_models``) is needed with ``use_diffusion`` only."""
-    if cfg.use_occupancy:
-        raise NotImplementedError(NOT_PORTED_OCCUPANCY)
     if lpips_fn is not None:
         raise NotImplementedError(NOT_PORTED_LPIPS)
-    if use_diffusion and cfg.fusion_rays:
-        raise NotImplementedError(NOT_PORTED_FUSION_RAYS)
     if use_diffusion and models is None:
         raise ValueError("the diffusion arm needs the EFT/VAE/UNet models")
     device = generator.device
@@ -460,6 +553,7 @@ def distillation_loop(
         num_steps=cfg.num_steps, upsample_steps=cfg.upsample_steps,
         bound=cfg.bound, min_near=cfg.min_near,
         max_ray_batch=cfg.max_ray_batch)
+    active_vcfg = render_schedule(cfg, vcfg)
     input_idx = [int(i) for i in input_idx]
 
     # ---- Phase A: EFT feature cache -----------------------------------
@@ -485,11 +579,37 @@ def distillation_loop(
                                 models=models)
     unet_evals0 = models.unet_evals if models is not None else 0
 
+    occ_grid, bitfield = None, None
+    occupancy = None
+    if cfg.use_occupancy:
+        occ_grid = OccupancyGrid(bound=cfg.bound, grid_size=OCC_GRID_SIZE,
+                                 density_thresh=cfg.density_thresh,
+                                 device=device)
+        bitfield = occ_grid.full_bitfield()
+        occupancy = {"update_itrs": [], "update_seconds": [],
+                     "occupied_share": []}
+
+    def occ_density_fn(pts):
+        return field(pts)[0]
+
     host_rng = np.random.RandomState(17)
     losses, fusion_losses = [], []
     iter_times = []
+    render_modes = {"two_phase": 0, "march": 0}
+    fusion_subset_steps = 0
     t0 = time.time()
     for itr in range(cfg.max_itr):
+        vc = active_vcfg(itr)
+        render_modes["march" if vc.march_steps else "two_phase"] += 1
+        # occupancy maintenance before the iteration's steps, as in the
+        # JAX loop
+        if occupancy_update_due(cfg, itr):
+            t_occ = time.time()
+            occ_grid.update(occ_density_fn, generator)   # reads the mean
+            bitfield = occ_grid.bitfield
+            occupancy["update_itrs"].append(itr)
+            occupancy["update_seconds"].append(time.time() - t_occ)
+            occupancy["occupied_share"].append(_occupied_share(bitfield))
         # host draws in the JAX package's order: input view, then the
         # cached camera and the noise level
         bi = input_idx[host_rng.randint(len(input_idx))]
@@ -499,16 +619,19 @@ def distillation_loop(
             ci = int(host_rng.randint(n_cache))
             mt = min(float(host_rng.uniform()), 0.99)
             cam_f = feature_cache["cameras_vox"][ci]
-        loss = steps.input_step(vcfg, cam, scene_rgb[bi], gt_mask, generator)
+        loss = steps.input_step(vc, cam, scene_rgb[bi], gt_mask, generator,
+                                bitfield=bitfield)
         losses.append(float(loss))
         if use_diffusion:
             if itr > cfg.start_fusion_step:
-                floss = steps.fusion_step(vcfg, cam_f,
+                fusion_subset_steps += int(steps.subsample_fusion)
+                floss = steps.fusion_step(vc, cam_f,
                                           feature_cache["features"][ci], mt,
-                                          generator)
+                                          generator, bitfield=bitfield)
             else:
                 floss = steps.bootstrap_step(
-                    vcfg, cam_f, feature_cache["eft_images"][ci], generator)
+                    vc, cam_f, feature_cache["eft_images"][ci], generator,
+                    bitfield=bitfield)
             fusion_losses.append(float(floss))
         iter_times.append(time.time())
         if verbose and itr % 200 == 0:
@@ -520,8 +643,11 @@ def distillation_loop(
                                fusion_losses)
 
     # ---- Phase C: eval ------------------------------------------------
-    renders, sils = _render_views(field, scene_vox, image_size, vcfg,
-                                  generator)
+    # in the render mode of the last iteration, inside the occupied span
+    vcfg_eval = active_vcfg(cfg.max_itr)
+    nff = steps.make_nff(bitfield)
+    renders, sils = _render_views(field, scene_vox, image_size, vcfg_eval,
+                                  generator, nff)
     metrics = {"psnr": [], "ssim": []}
     for ci in range(len(scene_vox)):
         metrics["psnr"].append(psnr(renders[ci], scene.images[ci]))
@@ -534,8 +660,8 @@ def distillation_loop(
               f"ssim: {summary['ssim']:.3f}")
 
     circle_cams = get_interpolated_path(scene_vox, n=cfg.n_aug_cameras)
-    c_imgs, c_sils = _render_views(field, circle_cams, image_size, vcfg,
-                                   generator)
+    c_imgs, c_sils = _render_views(field, circle_cams, image_size,
+                                   vcfg_eval, generator, nff)
     circle_renders = [np.hstack([c_imgs[i], np.repeat(c_sils[i], 3, -1)])
                       for i in range(len(circle_cams))]
 
@@ -554,10 +680,25 @@ def distillation_loop(
         # host wall clock at the end of each iteration; the loss read
         # synchronizes every iteration, so the differences are step times
         "iter_times": iter_times,
+        # with cfg.use_occupancy: the iterations before which the grid was
+        # updated, each update's seconds (it ends in a read of the mean)
+        # and the occupied share of the bitfield after it
+        "occupancy": occupancy,
+        # iterations by render mode (single-pass march or two-phase), and
+        # the fusion steps that took their gradient on a ray subset
+        "render_modes": render_modes,
+        "fusion_subset_steps": fusion_subset_steps,
     }
     if save_dir is not None:
         _save_outputs(result, scene, feature_cache, save_dir, verbose)
     return result
+
+
+def _occupied_share(bitfield: torch.Tensor) -> float:
+    """The share of the grid's cells that the bitfield marks occupied."""
+    bits = (bitfield.to(torch.int32)[:, None]
+            >> torch.arange(8, device=bitfield.device)) & 1
+    return float(bits.sum()) / (8 * bitfield.numel())
 
 
 def _save_intermediate(save_dir: str, seq: str, losses,

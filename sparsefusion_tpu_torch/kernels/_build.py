@@ -147,6 +147,8 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
         fn.restype = i32
+    lib.sf_row_gather.argtypes = [vp, vp, vp, i64, i32, i32, vp]
+    lib.sf_row_gather.restype = i32
     return lib
 
 

@@ -7,7 +7,8 @@ gradient with f32 atomics.  The plain version of both is
 ``ops/grid_encode.py::grid_encode_plain`` (autograd gives its gradient).
 
 Each wrapper checks its tensors, allocates its output, launches on the
-current stream and counts its launches in ``<wrapper>.launches``.
+current stream and counts its launches in ``<wrapper>.launches`` (the
+forward's on a bf16 table also in ``grid_encode_cuda.launches_bf16``).
 :func:`level_plan` mirrors, in Python, how the kernels reduce each
 level's index to the level's size.
 """
@@ -154,10 +155,12 @@ def grid_encode_cuda(x01: torch.Tensor, table: torch.Tensor,
     _call(load_library().sf_grid_encode_fwd, x01, table,
           table.dtype == torch.bfloat16, out, enc)
     grid_encode_cuda.launches += 1
+    grid_encode_cuda.launches_bf16 += table.dtype == torch.bfloat16
     return out
 
 
 grid_encode_cuda.launches = 0
+grid_encode_cuda.launches_bf16 = 0
 
 
 def grid_encode_cuda_backward(x01: torch.Tensor, grad_out: torch.Tensor,
@@ -188,6 +191,7 @@ grid_encode_cuda_backward.launches = 0
 
 def reset_launches() -> None:
     grid_encode_cuda.launches = 0
+    grid_encode_cuda.launches_bf16 = 0
     grid_encode_cuda_backward.launches = 0
 
 

@@ -148,9 +148,34 @@ def test_synthetic_scene_matches_jax():
     assert a.images.max() > 0.2
 
 
-def test_loop_refuses_occupancy_preset():
-    scene = make_synthetic_scene(n_views=2, image_size=8, seed=0)
-    with pytest.raises(NotImplementedError, match="occupancy"):
-        tloop.distillation_loop(None, scene, [0, 1],
-                                tloop.tpu_distill_config(max_itr=1),
-                                torch.Generator(), use_diffusion=False)
+def test_loop_runs_the_occupancy_preset(monkeypatch):
+    """The TPU preset, port only, NGP-only, at a tiny size (a 32^3
+    occupancy grid): two-phase sampling, the grid's first update and the
+    switch to single-pass marching at occupancy_start, updates every 8
+    iterations, the two-phase polish tail, and Phase C inside the occupied
+    span (the JAX loop's ``tests/test_distill_occupancy.py`` drives, in
+    one run)."""
+    monkeypatch.setattr(tloop, "OCC_GRID_SIZE", 32)
+    scene = make_synthetic_scene(n_views=3, image_size=32, seed=1)
+    cfg = tloop.tpu_distill_config(
+        max_itr=30, start_fusion_step=10 ** 9, n_aug_cameras=2,
+        num_steps=8, upsample_steps=8, max_ray_batch=256,
+        occupancy_start=8, occupancy_update_every=8, occ_march_steps=12,
+        polish_start=22,
+        ngp=NGPConfig(num_levels=4, level_dim=4, log2_hashmap_size=10,
+                      table_dtype="bfloat16"))
+    assert cfg.use_occupancy and cfg.fusion_rays == 4096 and not cfg.remat
+    out = tloop.distillation_loop(None, scene, [0, 1], cfg,
+                                  torch.Generator().manual_seed(0),
+                                  use_diffusion=False, verbose=False)
+    assert len(out["losses"]) == 30 and np.isfinite(out["losses"]).all()
+    assert max(out["losses"]) < 10.0
+    occ = out["occupancy"]
+    assert occ["update_itrs"] == [8, 16, 24]
+    # marching over iterations 8..21, two-phase before and in the tail
+    assert out["render_modes"] == {"two_phase": 16, "march": 14}
+    # the density blob at the origin is occupied, the box's corners not
+    assert all(0.0 < s < 1.0 for s in occ["occupied_share"])
+    assert all(s >= 0 for s in occ["update_seconds"])
+    assert np.isfinite(out["renders"]).all()
+    assert np.isfinite(out["metrics"]["psnr"])

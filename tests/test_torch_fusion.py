@@ -246,13 +246,35 @@ def test_feature_cache_matches_jax():
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("option", ["fusion_rays"])
-def test_loop_refuses_unported_diffusion_options(option):
-    scene = make_synthetic_scene(n_views=2, image_size=8, seed=0)
-    cfg = tloop.DistillConfig(max_itr=1, **{option: 16})
-    with pytest.raises(NotImplementedError, match=option):
-        tloop.distillation_loop(object(), scene, [0, 1], cfg,
-                                torch.Generator(), use_diffusion=True)
+def test_loop_runs_the_subsampled_fusion_step(monkeypatch):
+    """``fusion_rays`` below render_hw^2: each fusion iteration renders the
+    full image without gradient for the sampler and takes its gradient
+    on that many rays (the step itself is held against JAX's in
+    ``test_torch_distill_occupancy``)."""
+    from sparsefusion_tpu_torch.data.synthetic import (
+        make_synthetic_scene as port_synthetic_scene,
+    )
+
+    _, tmodels = _trio()
+    scene = port_synthetic_scene(n_views=3, image_size=IMAGE_SIZE, seed=0)
+    cfg = tloop.DistillConfig(max_itr=3, start_fusion_step=0,
+                              n_aug_cameras=2, fusion_rays=64,
+                              ngp=NGPConfig(**NGP_KW), **STEP_KW)
+    calls = []
+    subset = tloop.SceneSteps.fusion_subset_losses
+    monkeypatch.setattr(
+        tloop.SceneSteps, "fusion_subset_losses",
+        lambda self, *a, **kw: calls.append(self.subsample_fusion)
+        or subset(self, *a, **kw))
+    out = tloop.distillation_loop(tmodels, scene, [0, 1], cfg,
+                                  torch.Generator().manual_seed(0),
+                                  verbose=False)
+    # iterations 1 and 2 are fusion iterations (itr > start_fusion_step)
+    assert calls == [True, True]
+    assert out["fusion_subset_steps"] == 2
+    assert len(out["fusion_losses"]) == 3
+    assert np.isfinite(out["fusion_losses"]).all()
+    assert np.isfinite(out["losses"]).all()
 
 
 def test_demo_cpu_runs_the_diffusion_arm(tmp_path):

@@ -1,5 +1,6 @@
-"""The CUDA kernels (grid encode K1, imagen attention K2 in f32 and bf16)
-against their plain PyTorch versions, on a CUDA card.  Without one these
+"""The CUDA kernels (grid encode K1, imagen attention K2 in f32 and bf16,
+row gather K3) against their plain PyTorch versions, and the occupancy
+grid on the card against the CPU, on a CUDA card.  Without one these
 tests skip: a CUDA kernel has no CPU mode.  f32 matmuls and convolutions
 run in full f32 here (``set_tf32(False)``, as the entry points set it).
 
@@ -550,3 +551,90 @@ def test_cuda_level_plan_matches_its_mirror(gridtype, log2):
                              log2_hashmap_size=log2, gridtype=gridtype,
                              desired_resolution=8192)
     assert kernels.level_plan_cuda(enc) == kernels.level_plan(enc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("table_rows", [8192, 16384, 32768])
+@pytest.mark.parametrize("n", [0, 1, 4097, 131072])
+def test_row_gather_kernel_matches_index_select(n, table_rows, dtype):
+    """K3 against its plain version (one index_select), bit-equal: every
+    table size of the JAX micro, an odd N and N = 0 (no launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from sparsefusion_tpu_torch.kernels import row_gather as k3
+    from sparsefusion_tpu_torch.ops.row_gather import (
+        row_gather,
+        row_gather_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(n + table_rows)
+    table = torch.randn(table_rows, 128, device="cuda",
+                        generator=gen).to(dtype)
+    idx = torch.randint(0, table_rows, (n,), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    k3.reset_launches()
+    got = row_gather(table, idx)
+    torch.cuda.synchronize()
+    assert k3.row_gather_cuda.launches == (1 if n else 0)
+    assert got.shape == (n, 128) and got.dtype == dtype
+    assert torch.equal(got, row_gather_plain(table, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_row_gather_kernel_zeroes_out_of_range_rows(dtype):
+    """An index outside [0, R) reads nothing and gives a row of zeros;
+    the other rows are the table's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from sparsefusion_tpu_torch.kernels.row_gather import row_gather_cuda
+
+    table = torch.randn(8192, 128, device="cuda").to(dtype) + 3.0
+    idx = torch.randint(0, 8192, (1000,), device="cuda", dtype=torch.int32)
+    bad = torch.tensor([0, 17, 500, 999], device="cuda")
+    idx[bad] = torch.tensor([-1, 8192, 2 ** 31 - 1, -2 ** 31],
+                            device="cuda", dtype=torch.int32)
+    got = row_gather_cuda(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got[bad], torch.zeros(4, 128, device="cuda",
+                                             dtype=dtype))
+    good = torch.ones(1000, dtype=torch.bool, device="cuda")
+    good[bad] = False
+    assert torch.equal(got[good], table.index_select(0, idx[good]))
+
+
+@pytest.mark.cuda
+def test_row_gather_kernel_refuses_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from sparsefusion_tpu_torch.kernels.row_gather import row_gather_cuda
+
+    table = torch.zeros(64, 128, device="cuda", dtype=torch.bfloat16)
+    idx = torch.zeros(8, device="cuda", dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        row_gather_cuda(table, idx.long())
+    with pytest.raises(ValueError, match="128"):
+        row_gather_cuda(torch.zeros(64, 100, device="cuda"), idx)
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(64 * 128 + 8, device="cuda", dtype=torch.bfloat16)
+        row_gather_cuda(flat[1:1 + 64 * 128].view(64, 128), idx)
+    with pytest.raises(ValueError, match="CUDA"):
+        row_gather_cuda(table.cpu(), idx.cpu())
+
+
+@pytest.mark.cuda
+def test_occupancy_on_the_card_matches_the_cpu():
+    """density_grid_update (the jitter passed in) and occupancy_near_far
+    on the card against the CPU, at the loop's grid (128^3, 3 cascades):
+    the grid within 1e-6 relative of its largest value (exp differs by an
+    ulp), the bitfield equal but for cells within 1e-6 of the threshold,
+    and near/far within 1e-5 relative on every ray but those with a probe
+    at a cell face (tools/card_checks.py, which chip_smoke.py also runs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from sparsefusion_tpu_torch.tools.card_checks import occupancy_card_vs_cpu
+
+    stats, bitfield = occupancy_card_vs_cpu("cuda")
+    assert stats["rays_apart_away_from_faces"] == 0
+    assert 0 < int(bitfield.sum())
