@@ -10,8 +10,9 @@ first), except in the TF32 train profile of step 7.
 2. Builds the port's CUDA kernels from ``sparsefusion_tpu_torch/csrc``
    (``--csrc DIR``: from another directory of sources with the same C
    entry points) and prints ptxas's registers, shared memory and spills
-   per kernel and their SASS opcode counts (HMMA, RED, ATOM, LDG); both
-   of K2's instances (f32 and bf16) must issue HMMA.
+   per kernel and their SASS opcode counts (HMMA, HGMMA, RED, ATOM, LDG);
+   both of K2's instances (f32 and bf16) must issue HMMA, and the bf16
+   instance's wgmma body HGMMA, with no spills.
 3. Kernel phase: the fused grid-encode kernel (K1), forward and table
    gradient, against its plain PyTorch version on the same inputs, at
    ``NGPConfig()`` width (16 levels x C2, f32) on 2,097,152 uniform
@@ -25,13 +26,20 @@ first), except in the TF32 train profile of step 7.
    (K2), f32 and bf16 instances, each against its plain version in its
    type, at the UNet's shapes (1, 8, 16, 64) with 17 and 19 keys, at the
    train step's (12, 8, 16, 64) with 17 and 19 keys and at (2, 8, 1024,
-   64) with 1027 keys, beside one ``scaled_dot_product_attention`` call
-   in the same type as its yardstick (the port never calls it) and the
-   plain backward's time; head dims 8 and 16 (bf16 also 32) at ragged
-   shapes; head dim 48 through the dispatcher in both types (the plain
-   version, no launch).  The row gather (K3) through the JAX
-   micro-benchmark's counterpart, ``tools/gather_micro.py`` (its lines
-   printed; K3's launches counted over it): (R, 128) bf16 tables for R in
+   64) with 1027 keys (in bf16 also (2, 2, 2048, 16) and (2, 2, 2048,
+   32) with 1027 keys, and (2, 8, 1024, 64) with 129, 513 and 2051: those
+   run the bf16 instance's wgmma body, the UNet's shapes its mma_sync
+   body, and each launch's body is checked by its counter),
+   beside one ``scaled_dot_product_attention`` call in the same type as
+   its yardstick (the port never calls it) and the plain backward's time;
+   K2's bound is the largest of its bytes, its operations and its
+   exponentials (rows x keys at 16 a clock on every SM at the maximum SM
+   clock ``nvidia-smi`` prints); head dims 8 and 16 (bf16 also 32, and 64
+   over 3 batches of 111 rows) at ragged shapes; head dim 48 through the
+   dispatcher in both types (the plain version, no launch).  The row
+   gather (K3) through the JAX micro-benchmark's counterpart,
+   ``tools/gather_micro.py`` (its lines printed; K3's launches counted
+   over it): (R, 128) bf16 tables for R in
    {8192, 16384, 32768} at N = 131,072 and 2,097,152 rows, bit-equal to
    its plain version and timed against one ``index_select``, with the
    bytes bound and the 32-byte sectors per second; one f32 case; indices
@@ -141,24 +149,51 @@ def _mark(phase):
     print(f"[{time.perf_counter() - _T0:7.1f} s] {phase} done", flush=True)
 
 
-def _device_lines():
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
+def _smi(query):
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    print(smi)
+
+
+def _device_lines():
+    print(_smi("name,power.limit"))
     print(f"torch device: {torch.cuda.get_device_name(0)} "
-          f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
+          f"(torch {torch.__version__}, CUDA {torch.version.cuda}); "
+          f"max SM clock {_sm_clock_hz() / 1e6:.0f} MHz, "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
 
-def _bound(n_bytes, ops=0, ops_per_s=F32_OPS_PER_S):
-    """The least time the card could take: each input byte read once and
-    each output byte written once at the memory rate, or the operations
-    at the peak of their type (f32 unless given), whichever is larger."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = ops / ops_per_s
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+_SM_CLOCK_HZ = []
+
+
+def _sm_clock_hz():
+    """The card's maximum SM clock, as ``nvidia-smi`` prints it in this
+    run (read once)."""
+    if not _SM_CLOCK_HZ:
+        _SM_CLOCK_HZ.append(float(_smi("clocks.max.sm").split()[0]) * 1e6)
+    return _SM_CLOCK_HZ[0]
+
+
+# MUFU ex2: 16 results per SM per clock on compute capability 9.0
+# (NVIDIA's table of arithmetic instruction throughput)
+EX2_PER_SM_CLOCK = 16
+
+
+def _bound(n_bytes, ops=0, ops_per_s=F32_OPS_PER_S, exps=0):
+    """The least time the card could take: the largest of each input byte
+    read once and each output byte written once at the memory rate, the
+    operations at the peak of their type (f32 unless given), and ``exps``
+    exponentials at the SFUs' rate on every SM at the maximum SM clock.
+    Returns (ms, which of "bytes", "operations", "exponentials" set it)."""
+    floors = {"bytes": n_bytes / HBM_BYTES_PER_S,
+              "operations": ops / ops_per_s}
+    if exps:
+        floors["exponentials"] = exps / (
+            EX2_PER_SM_CLOCK * _sm_clock_hz()
+            * torch.cuda.get_device_properties(0).multi_processor_count)
+    bound_by = max(floors, key=floors.get)
+    return floors[bound_by] * 1e3, bound_by
 
 
 def _nbytes(*ts):
@@ -483,19 +518,32 @@ def input_step_profile(preset="reference"):
 ATTN_SHAPES = [(1, 8, 16, 64, 17), (1, 8, 16, 64, 19),
                (12, 8, 16, 64, 17), (12, 8, 16, 64, 19),
                (2, 8, 1024, 64, 1027)]
+# bf16 also times the long shapes at head dims 16 and 32 and, at the long
+# shape's rows, 129, 513 and 2051 keys (2, 5 and 17 of the wgmma body's
+# 128-key tiles: its fixed time and its time a tile)
+ATTN_BF16_LONG_SHAPES = [(2, 2, 2048, 16, 1027), (2, 2, 2048, 32, 1027),
+                         (2, 8, 1024, 64, 129), (2, 8, 1024, 64, 513),
+                         (2, 8, 1024, 64, 2051)]
 # head dims 8 and 16 (the tiny UNet's 8), and in bf16 also 32: ragged rows
-# and keys around the 64- and 128-key tiles
+# and keys around the 64- and 128-key tiles; bf16 also H*N = 111 rows of 3
+# batches over 257 keys (the wgmma body's 128-row CTAs straddle batches)
 ATTN_SMALL_D_SHAPES = [(1, 1, 5, 8, 1), (12, 2, 16, 8, 17),
                        (3, 4, 37, 8, 257), (12, 2, 16, 16, 129),
                        (2, 2, 2048, 16, 1027)]
-ATTN_BF16_D32_SHAPES = [(1, 1, 5, 32, 1), (3, 4, 37, 32, 257),
-                        (2, 2, 2048, 32, 1027)]
+ATTN_BF16_SMALL_SHAPES = [(1, 1, 5, 32, 1), (3, 4, 37, 32, 257),
+                          (3, 3, 37, 64, 257)]
 # f32: the kernel's 3xTF32 products and online softmax sum in another
 # order than the plain softmax.  bf16: |err| <= atol + rtol |plain|; the
 # kernel rounds the unnormalised P and the plain version the normalised
 # one, and each rounds its output once: one output ulp (2^-7 relative)
 # plus P's rounding over the keys (tests/test_torch_kernels_cuda.py)
 ATTN_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-2, 2 ** -7)}
+# K2's kernels by instance; bf16 has two bodies (kernels/attention.py::
+# bf16_plan picks one per call)
+K2_KERNELS = {
+    torch.float32: {"f32": "imagen_attention_fwd_kernel"},
+    torch.bfloat16: {"mma_sync": "imagen_attention_bf16_fwd_kernel",
+                     "wgmma": "imagen_attention_bf16_wgmma_fwd_kernel"}}
 
 
 def _sdpa_yardstick(q, k, v, want):
@@ -554,10 +602,12 @@ def _attn_err(got, want, dtype):
 
 def attention_phase(dtype=torch.float32):
     """K2's instance for ``dtype`` against its plain version in that type;
-    returns the largest error and, per shape, the kernel's device time,
-    its event time, the plain version's and the library's device times,
-    the plain backward's, and the bound.  Then D = 48 through the
-    dispatcher: the plain version, no launch."""
+    returns the largest error, per shape the body that ran (bf16: by the
+    plan and by its counter), the kernel's device time, its event time,
+    the plain version's and the library's device times, the plain
+    backward's, and the bound; and the launches of each body over the
+    phase.  Then D = 48 through the dispatcher: the plain version, no
+    launch."""
     from sparsefusion_tpu_torch.kernels import attention
     from sparsefusion_tpu_torch.kernels.attention import imagen_attention_cuda
     from sparsefusion_tpu_torch.ops.attention import (
@@ -566,28 +616,47 @@ def attention_phase(dtype=torch.float32):
     )
 
     bf16 = dtype == torch.bfloat16
-    kernel = ("imagen_attention_bf16_fwd_kernel" if bf16
-              else "imagen_attention_fwd_kernel")
+    kernels = K2_KERNELS[dtype]
+    names = tuple(kernels.values())
     ops_per_s = BF16_OPS_PER_S if bf16 else F32_OPS_PER_S
     atol, rtol = ATTN_TOL[dtype]
     tol = f"tol {atol:.0e} + {rtol:.2e} |plain|"
     gen = torch.Generator(device="cuda").manual_seed(1)
     err_max, times = 0.0, {}
-    for b, h, n, d, j in ATTN_SHAPES:
+    by_body = dict.fromkeys(kernels, 0)
+
+    def checked_launch(q, k, v, b, h, n, d, j):
+        """One launch, counted by body; bf16: the counter must name the
+        body the plan chose."""
+        attention.reset_launches()
+        out = imagen_attention_cuda(q, k, v)
+        torch.cuda.synchronize()
+        if not bf16:
+            by_body["f32"] += 1
+            return out, "f32"
+        body = attention.bf16_plan(b, h * n, j, d).body
+        wgmma = imagen_attention_cuda.launches_bf16_wgmma
+        assert wgmma == (body == "wgmma"), (body, wgmma)
+        by_body[body] += 1
+        return out, body
+
+    timed = ATTN_SHAPES + (ATTN_BF16_LONG_SHAPES if bf16 else [])
+    for b, h, n, d, j in timed:
         q, k, v = _attn_inputs(b, h, n, d, j, gen, dtype)
         g = torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
-        out_k = imagen_attention_cuda(q, k, v)
-        torch.cuda.synchronize()
+        out_k, body = checked_launch(q, k, v, b, h, n, d, j)
         out_p = imagen_attention_plain(q, k, v)
         err, ok = _attn_err(out_k, out_p, dtype)
         name = f"q{(b, h, n, d)}_J{j}".replace(" ", "")
-        print(f"kernel {kernel} {name}:")
+        print(f"kernel {kernels[body]} {name}:")
         lib_ms, variant, backend, lib_err = _sdpa_yardstick(q, k, v, out_p)
         bound_ms, bound_by = _bound(_nbytes(q, k, v, out_k),
-                                    4 * b * h * n * j * d, ops_per_s)
+                                    4 * b * h * n * j * d, ops_per_s,
+                                    exps=b * h * n * j)
         times[name] = {
+            "body": body,
             "ms": named_ms(device_ms(lambda: imagen_attention_cuda(q, k, v),
-                                     PROFILE_ITERS), kernel),
+                                     PROFILE_ITERS), names),
             "event_ms": event_ms(lambda: imagen_attention_cuda(q, k, v),
                                  TIMING_ITERS),
             "plain_ms": sum(device_ms(lambda: imagen_attention_plain(q, k, v),
@@ -606,13 +675,14 @@ def attention_phase(dtype=torch.float32):
         assert torch.isfinite(out_k.float()).all()
         assert ok, f"K2 {dtype} disagrees at {name}"
         err_max = max(err_max, err)
-    small = ATTN_SMALL_D_SHAPES + (ATTN_BF16_D32_SHAPES if bf16 else [])
+    small = ATTN_SMALL_D_SHAPES + (ATTN_BF16_SMALL_SHAPES if bf16 else [])
     for b, h, n, d, j in small:
+        if bf16 and (b, h, n, d, j) in ATTN_BF16_LONG_SHAPES:
+            continue   # timed above
         q, k, v = _attn_inputs(b, h, n, d, j, gen, dtype)
-        out_k = imagen_attention_cuda(q, k, v)
-        torch.cuda.synchronize()
+        out_k, body = checked_launch(q, k, v, b, h, n, d, j)
         err, ok = _attn_err(out_k, imagen_attention_plain(q, k, v), dtype)
-        print(f"kernel {kernel} q{(b, h, n, d)}_J{j}: max_abs_err "
+        print(f"kernel {kernels[body]} q{(b, h, n, d)}_J{j}: max_abs_err "
               f"{err:.3e} ({tol})")
         assert torch.isfinite(out_k.float()).all()
         assert ok, f"K2 {dtype} disagrees at D = {d}"
@@ -632,8 +702,9 @@ def attention_phase(dtype=torch.float32):
     else:
         raise AssertionError("K2 took an unsupported head dim")
     print(f"K2 {dtype} at D = 48: the dispatcher ran the plain version, "
-          "no launch; the kernel refused it")
-    return err_max, times
+          f"no launch; the kernel refused it.  Checked launches by body: "
+          f"{by_body}")
+    return err_max, times, by_body
 
 
 GATHER_POINTS = (131072, 2097152)   # the JAX micro's default N, and 16x
@@ -1369,7 +1440,8 @@ def _reset_counts():
 
 def _read_counts():
     """Launches since the last reset; ``imagen_attention`` counts both of
-    K2's instances, ``imagen_attention_bf16`` the bf16 one;
+    K2's instances, ``imagen_attention_bf16`` the bf16 one,
+    ``imagen_attention_bf16_wgmma`` the bf16 one's wgmma body;
     ``grid_encode_fwd_bf16`` K1 forward's launches on a bf16 table."""
     from sparsefusion_tpu_torch.kernels import attention, grid_encode
 
@@ -1380,7 +1452,9 @@ def _read_counts():
             "grid_encode_bwd": grid_encode.grid_encode_cuda_backward.launches,
             "imagen_attention": attention.imagen_attention_cuda.launches,
             "imagen_attention_bf16":
-                attention.imagen_attention_cuda.launches_bf16}
+                attention.imagen_attention_cuda.launches_bf16,
+            "imagen_attention_bf16_wgmma":
+                attention.imagen_attention_cuda.launches_bf16_wgmma}
 
 
 def train_main_path(counts, bf16=False):
@@ -1641,13 +1715,19 @@ def visualization_check(models, rel, scene):
     return stats
 
 
-def _k2_entry(name, source, attn_err, attn_times, by_path, profile):
-    """One of K2's instances in the kernels line."""
+def _k2_entry(name, source, attn_err, attn_times, by_path, profile,
+              by_body=None, phase_by_body=None):
+    """One of K2's instances in the kernels line; the bf16 one with its
+    launches by body on the main paths and in the kernel phase."""
     # K2 at the UNet's down_3/up_0 shape (19 keys): the demo's batch of 1
     # and the train step's diffusion batch of 12
     ta = attn_times["q(1,8,16,64)_J19"]
     tt = attn_times["q(12,8,16,64)_J19"]
-    return {
+    tl = attn_times["q(2,8,1024,64)_J1027"]
+    bodies = {} if by_body is None else {
+        "launches_by_body": by_body,
+        "kernel_phase_launches_by_body": phase_by_body}
+    return {**bodies,
         "name": name, "route": "cuda", "source": source,
         "replaces": "sparsefusion_tpu/kernels/attention.py:70",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1659,12 +1739,15 @@ def _k2_entry(name, source, attn_err, attn_times, by_path, profile):
         "train_shape": {key: tt[key] for key in (
             "ms", "plain_ms", "library_ms", "library_backend", "bound_ms",
             "bound_by", "plain_backward_ms")},
+        "long_shape": {key: tl[key] for key in (
+            "body", "ms", "library_ms", "library_backend", "bound_ms",
+            "bound_by", "plain_ms")},
         "train_step_ms_per_step": profile["by_kernel_class"]["k2_forward"],
         "train_step_plain_backward_ms_per_step": profile["by_range"][
             "k2_plain_backward"],
         "shapes": {shape: {key: t[key] for key in (
-            "ms", "plain_ms", "library_ms", "library_backend", "bound_ms",
-            "bound_by", "plain_backward_ms", "max_abs_err")}
+            "body", "ms", "plain_ms", "library_ms", "library_backend",
+            "bound_ms", "bound_by", "plain_backward_ms", "max_abs_err")}
             for shape, t in attn_times.items()}}
 
 
@@ -1717,12 +1800,21 @@ def main(argv=None) -> int:
     print("ptxas -v:\n" + _build.resource_report())
     sass = _build.sass_counts()
     print("sass opcode counts: " + json.dumps(sass))
+    # K2 bf16's wgmma body: warpgroup products (HGMMA) at every head dim,
+    # and nothing spilled
+    spills = _build.spill_bytes()
+    wgmma_fns = [f for f in sass
+                 if K2_KERNELS[torch.bfloat16]["wgmma"] in f]
+    assert len(wgmma_fns) == 3, wgmma_fns
+    for f in wgmma_fns:
+        assert sass[f]["HGMMA"] > 0, f"{f} issues no HGMMA"
+        assert spills.get(f) == 0, f"{f} spills {spills.get(f)} bytes"
 
     _mark("build")
     errs, times = kernel_phase()
     _mark("K1 kernel phase")
-    attn_err, attn_times = attention_phase(torch.float32)
-    bf16_err, bf16_times = attention_phase(torch.bfloat16)
+    attn_err, attn_times, _ = attention_phase(torch.float32)
+    bf16_err, bf16_times, bf16_phase_bodies = attention_phase(torch.bfloat16)
     _mark("K2 kernel phase")
     k3_launches, k3_micro, k3_f32, k3_err = row_gather_phase()
     _mark("K3 kernel phase")
@@ -1799,6 +1891,11 @@ def main(argv=None) -> int:
             out[path] = n
         return out
 
+    wgmma_paths = by_path("imagen_attention_bf16_wgmma")
+    bf16_paths = by_path("imagen_attention", bf16=True)
+    bf16_bodies = {"mma_sync": sum(bf16_paths.values())
+                   - sum(wgmma_paths.values()),
+                   "wgmma": sum(wgmma_paths.values())}
     t = times["ngp_16xC2_f32"]
     tr = times["ngp_16xC2_f32_rays"]
     tu = times["ngp_16xC2_f32_uniform_chunk"]
@@ -1834,7 +1931,7 @@ def main(argv=None) -> int:
                   profiles["float32"]),
         _k2_entry("imagen_attention_bf16", k2_src, bf16_err, bf16_times,
                   by_path("imagen_attention", bf16=True),
-                  profiles["bfloat16"]),
+                  profiles["bfloat16"], bf16_bodies, bf16_phase_bodies),
         _k3_entry(k3_launches, k3_micro, k3_f32, k3_err,
                   tr["fwd_warp_sectors_per_s"]),
     ]

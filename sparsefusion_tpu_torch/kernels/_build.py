@@ -100,16 +100,33 @@ def resource_report() -> str:
     text = report.read_text()
     return "\n".join(line.strip() for line in text.splitlines()
                      if "Compiling entry" in line or "Used" in line
-                     or "spill" in line)
+                     or "spill" in line or "warning" in line.lower()
+                     or "Performance" in line)
 
 
-SASS_OPCODES = ("HMMA", "RED", "ATOM", "LDG")
+def spill_bytes() -> dict:
+    """Per kernel of the built library, ptxas's spill stores plus spill
+    loads in bytes (``Function properties for <kernel>`` and the line after
+    it in the report)."""
+    lines = _report_path(build()).read_text().splitlines()
+    out = {}
+    for i, line in enumerate(lines[:-1]):
+        if "Function properties for" in line:
+            words = lines[i + 1].replace(",", " ").split()
+            out[line.split("for", 1)[1].strip()] = sum(
+                int(words[j - 2]) for j, w in enumerate(words)
+                if w == "spill" and j > 1)
+    return out
+
+
+SASS_OPCODES = ("HMMA", "HGMMA", "RED", "ATOM", "LDG")
 
 
 def sass_counts() -> dict:
     """Per kernel of the built library, how many SASS instructions start
     with each of :data:`SASS_OPCODES` (``cuobjdump -sass``): shows that a
-    kernel issues tensor-core instructions (HMMA), reductions to global
+    kernel issues tensor-core instructions (HMMA, or HGMMA, the warpgroup
+    products), reductions to global
     memory (RED, ATOM), and how many global loads (LDG) it has."""
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -143,10 +160,11 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp, i32, vp, i64, i32, i32, vp, vp, vp, vp, vp]
         fn.restype = i32
-    for name in ("sf_imagen_attention_fwd", "sf_imagen_attention_fwd_bf16"):
-        fn = getattr(lib, name)
-        fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
-        fn.restype = i32
+    lib.sf_imagen_attention_fwd.argtypes = [vp] * 4 + [i32] * 4 + [vp]
+    lib.sf_imagen_attention_fwd.restype = i32
+    # ... plus the plan: body, rows per CTA, key tile, stages, shared bytes
+    lib.sf_imagen_attention_fwd_bf16.argtypes = [vp] * 4 + [i32] * 9 + [vp]
+    lib.sf_imagen_attention_fwd_bf16.restype = i32
     lib.sf_row_gather.argtypes = [vp, vp, vp, i64, i32, i32, vp]
     lib.sf_row_gather.restype = i32
     return lib

@@ -11,7 +11,7 @@ CUDA events.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple, Union
 
 
 def kernel_ms(prof, n_calls: int) -> Dict[str, float]:
@@ -99,9 +99,12 @@ def event_ms(fn: Callable[[], object], iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def named_ms(by_name: Dict[str, float], kernel: str) -> float:
-    """The device ms of the kernels whose name holds ``kernel``."""
-    ms = [t for name, t in by_name.items() if kernel in name]
+def named_ms(by_name: Dict[str, float],
+             kernel: Union[str, Tuple[str, ...]]) -> float:
+    """The device ms of the kernels whose name holds ``kernel`` (or any of
+    the strings of a tuple: the bodies of one kernel)."""
+    kernels = (kernel,) if isinstance(kernel, str) else kernel
+    ms = [t for name, t in by_name.items() if any(k in name for k in kernels)]
     if not ms:
         raise RuntimeError(f"{kernel} not among the profiled kernels "
                            f"{sorted(by_name)}")

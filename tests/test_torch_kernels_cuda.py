@@ -198,14 +198,19 @@ BF16_ATOL, BF16_RTOL = 1e-2, 2 ** -7
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [8, 16, 32, 64])
-@pytest.mark.parametrize("n_keys", [1, 7, 17, 19, 127, 129, 257, 1027])
-@pytest.mark.parametrize("bhn", [(1, 1, 5), (12, 8, 16), (2, 2, 2048)],
+@pytest.mark.parametrize("n_keys", [1, 7, 17, 19, 65, 127, 128, 129, 255,
+                                    256, 257, 1027, 4099])
+@pytest.mark.parametrize("bhn", [(1, 1, 5), (3, 3, 37), (12, 8, 16),
+                                 (2, 2, 2048)],
                          ids=lambda bhn: "B{}H{}N{}".format(*bhn))
 def test_imagen_attention_bf16_kernel_matches_plain(bhn, n_keys, d):
     """Every head dim (D = 8 pads its reduction to 16), partial m-tiles,
     one key, ragged key tiles around 16-key steps and the 64- and 128-key
-    tiles, up to 1027 keys (a wrong P fragment mapping shows only beyond
-    8 keys)."""
+    tiles, up to 4099 keys (a wrong P fragment mapping shows only beyond
+    8 keys).  Beyond 128 keys at D = 16, 32 and 64 the wgmma body runs
+    (the counter says which body ran): keys on both sides of its 128-key
+    tiles, and H*N = 111 rows with B = 3, which is not a multiple of its
+    128-row CTAs, so rows leaking into the next batch would show."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     b, h, n = bhn
@@ -214,14 +219,49 @@ def test_imagen_attention_bf16_kernel_matches_plain(bhn, n_keys, d):
     k = torch.tensor(rng.randn(b, n_keys, d).astype(np.float32))
     v = torch.tensor(rng.randn(b, n_keys, d).astype(np.float32))
     q, k, v = (t.cuda().bfloat16() for t in (q, k, v))
+    wgmma = d in (16, 32, 64) and n_keys > 128
+    assert attention.bf16_plan(b, h * n, n_keys, d).body == \
+        ("wgmma" if wgmma else "mma_sync")
     attention.reset_launches()
     got = attention.imagen_attention_cuda(q, k, v)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     assert attention.imagen_attention_cuda.launches_bf16 == 1
+    assert attention.imagen_attention_cuda.launches_bf16_wgmma == int(wgmma)
     torch.testing.assert_close(got.float(),
                                imagen_attention_plain(q, k, v).float(),
                                atol=BF16_ATOL, rtol=BF16_RTOL)
+
+
+@pytest.mark.cuda
+def test_imagen_attention_long_keys_route_as_before():
+    """Over 1027 keys the dispatcher routes as it did before the wgmma
+    body: f32 to the f32 instance (no bf16 launch), bf16 at D = 48 to the
+    plain version (no launch), bf16 at D = 64 to the wgmma body."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.RandomState(7)
+
+    def qkv(d, dtype):
+        q = rng.randn(2, 2, 256, d).astype(np.float32) * d ** -0.5
+        k, v = (rng.randn(2, 1027, d).astype(np.float32) for _ in range(2))
+        return [torch.tensor(a).cuda().to(dtype) for a in (q, k, v)]
+
+    cu = attention.imagen_attention_cuda
+    for d, dtype, counts in ((64, torch.float32, (1, 0, 0)),
+                             (48, torch.bfloat16, (0, 0, 0)),
+                             (64, torch.bfloat16, (1, 1, 1))):
+        q, k, v = qkv(d, dtype)
+        attention.reset_launches()
+        got = attention.imagen_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert (cu.launches, cu.launches_bf16, cu.launches_bf16_wgmma) == \
+            counts, (d, dtype)
+        atol, rtol = (1e-5, 0) if dtype == torch.float32 \
+            else (BF16_ATOL, BF16_RTOL)
+        torch.testing.assert_close(got.float(),
+                                   imagen_attention_plain(q, k, v).float(),
+                                   atol=atol, rtol=rtol)
 
 
 @pytest.mark.cuda
@@ -242,6 +282,7 @@ def test_imagen_attention_bf16_through_the_dispatcher():
     torch.cuda.synchronize()
     assert attention.imagen_attention_cuda.launches == 1
     assert attention.imagen_attention_cuda.launches_bf16 == 1
+    assert attention.imagen_attention_cuda.launches_bf16_wgmma == 0
     want = attention.imagen_attention_backward_plain(q, k, v, g)
     for got, ref in zip((q.grad, k.grad, v.grad), want):
         assert got.dtype == torch.bfloat16
