@@ -19,7 +19,12 @@ first), except in the TF32 train profile of step 7.
    points, on one launch of the main path (4096 rays x 64 samples in the
    renderer's order, ``ops/grid_encode.py::ray_ordered_points``), on as
    many uniform points, and on 65,536 copies of one point; at 8 x C4 with
-   a bf16 table, and on a small hash grid.  Beside the forward's time on
+   a bf16 table, and on a small hash grid.  K1's scene axis: four
+   full-width tables (16 x C2 f32, and 8 x C4 read in bf16), each scene
+   with one main-path launch's points, in one launch of each kernel: the
+   forward bit-equal to four single launches, the table gradient within
+   the backward's tolerance, timed against the four single launches.
+   Beside the forward's time on
    the two chunks: the 32-byte table sectors one launch reads (counted
    with the plain version's index math), per launch and per warp and
    level, and the sectors per second achieved.  The imagen attention kernel
@@ -60,13 +65,18 @@ first), except in the TF32 train profile of step 7.
    image and one fusion step; then the occupancy grid's update (jitter
    passed in) and near/far tightening at the loop's 128^3 grid, and the
    TPU preset's marching input step and subsampled fusion step inside
-   that bitfield.
+   that bitfield; one scene-batched input, bootstrap and fusion step
+   (S = 2, ``NGPFieldStack``) card against CPU.
 5. The NGP-only demo at full width (``DistillConfig()``, ``NGPConfig()``,
    256 px, 100 iterations) through ``sparsefusion_tpu_torch.cli.demo.main``;
    then the TPU preset's (``--preset tpu``: 8 x C4 bf16 table, occupancy
    grid from iteration 500, single-pass 32-sample marching after it) for
    600 iterations: it/s before and after the switch, grid-update
-   seconds, occupied share, K1's bf16 launches.
+   seconds, occupied share, K1's bf16 launches.  Then both again over
+   four scenes with ``--scene_batch 4`` (``distill/batched.py``): scene
+   iterations a second beside the single scene's rate, K1's launches in
+   Phase B equal to the single-scene run's (each for all four scenes),
+   peak memory, every scene's PSNR >= 15.
 6. Main path: the full-width diffusion demo (``UNetConfig()``,
    ``VAEConfig()``, ``EFTConfig()``, 256 px, 40 iterations, fusion after
    iteration 20), through ``cli.demo.main`` and again through
@@ -80,7 +90,13 @@ first), except in the TF32 train profile of step 7.
    instance for; a head dim without one takes the plain version), in
    bf16 for the bf16 sampler.  Then one batch-1 UNet evaluation, as the
    sampler makes it, under ``torch.profiler`` in f32, TF32 and bf16:
-   device and host ms, kernels per evaluation, by kernel class.
+   device and host ms, kernels per evaluation, by kernel class.  The
+   diffusion demo over four scenes with ``--scene_batch 4`` (K2 three
+   times a UNet evaluation, each at batch 4).  LPIPS (seeded stand-in
+   torchvision / lpips weights): the card against the CPU at 64 px, the
+   device ms of the fusion step's perceptual term (forward and input
+   backward at 256 px) beside its operations bound, and the diffusion
+   demo with ``--lpips_weights`` (the eval's LPIPS column finite).
 7. Training.  One train step of the tiny models (``--preset tiny``: K2
    at head dim 8) on the card against the CPU from the same weights,
    batch and draws, in f32 and with the UNet in bf16: loss, every
@@ -101,9 +117,9 @@ first), except in the TF32 train profile of step 7.
    fixed draws whose loss and gradients are held against the f32 one.
    Then one full-width visualization grid (64-step ancestral sample),
    called directly.
-8. Prints the kernels' JSON line (K2's bf16 instance an entry of its
-   own; K3's launches are the micro's), then ``{"ok": true, "device":
-   ...}`` as the last line.
+8. Prints the kernels' JSON line (K2's bf16 instance and K1's
+   scene-batched launches entries of their own; K3's launches are the
+   micro's), then ``{"ok": true, "device": ...}`` as the last line.
 
 Every check asserts or raises; the script exits non-zero without a
 result when there is no CUDA device or the port is not importable.
@@ -366,6 +382,126 @@ def kernel_phase():
     return errs, times
 
 
+# the scene-batched loop's S on the card: four scenes in one launch
+SCENES = 4
+
+
+def scene_kernel_case(name, enc, table_dtype, gen):
+    """K1's scene-batched launch: SCENES tables at ``enc``'s full width,
+    each scene with one main-path launch's render points (RAY_CHUNK, in
+    the renderer's order).  The batched forward must be bit-equal to
+    SCENES single-scene launches and the batched table gradient within
+    the backward's tolerance of theirs; both are held against the plain
+    scene-batched version too.  Times: one batched launch against the
+    SCENES single launches it replaces, beside its bytes bound."""
+    from sparsefusion_tpu_torch.kernels import grid_encode as k1
+    from sparsefusion_tpu_torch.ops.grid_encode import (
+        grid_encode_plain,
+        ray_ordered_points,
+    )
+
+    x = torch.stack([ray_ordered_points(*RAY_CHUNK, gen, "cuda")
+                     for _ in range(SCENES)]).contiguous()
+    n = x.shape[1]
+    master = torch.randn(SCENES, enc.total_params, enc.level_dim,
+                         device="cuda", generator=gen) * 0.1
+    grad_out = torch.randn(SCENES, n, enc.output_dim, device="cuda",
+                           generator=gen)
+    bf16 = table_dtype == "bfloat16"
+    table = master.to(torch.bfloat16) if bf16 else master
+    k1.reset_launches()
+    out = k1.grid_encode_cuda(x, table, enc)
+    gt = k1.grid_encode_cuda_backward(x, grad_out, enc, bf16)
+    torch.cuda.synchronize()
+    assert (k1.grid_encode_cuda.launches, k1.grid_encode_cuda.scenes) == (
+        1, SCENES)
+    assert (k1.grid_encode_cuda_backward.launches,
+            k1.grid_encode_cuda_backward.scenes) == (1, SCENES)
+
+    def singles_fwd():
+        return [k1.grid_encode_cuda(x[s], table[s], enc)
+                for s in range(SCENES)]
+
+    def singles_bwd():
+        return [k1.grid_encode_cuda_backward(x[s], grad_out[s], enc, bf16)
+                for s in range(SCENES)]
+
+    fwd_equal = all(torch.equal(out[s], o)
+                    for s, o in enumerate(singles_fwd()))
+    bwd_err = max((gt[s] - g).abs().max().item()
+                  for s, g in enumerate(singles_bwd()))
+    g_scale = gt.abs().max().item()
+    master_p = master.clone().requires_grad_()
+    out_p = grid_encode_plain(x, master_p, enc, table_dtype)
+    (gt_p,) = torch.autograd.grad(out_p, master_p, grad_out,
+                                  retain_graph=True)
+    torch.cuda.synchronize()
+    fwd_err = (out - out_p).abs().max().item()
+    plain_bwd_err = (gt - gt_p).abs().max().item()
+    bwd_tol = 1e-5 * max(1.0, g_scale)
+    print(f"kernel {name}: S={SCENES} N={n} L={enc.num_levels} "
+          f"C={enc.level_dim} table={table_dtype or 'float32'}: forward "
+          f"bit-equal to {SCENES} single launches: {fwd_equal}; backward "
+          f"max_abs_err vs single launches {bwd_err:.3e}, vs plain "
+          f"{plain_bwd_err:.3e} (tol {bwd_tol:.1e}); forward vs plain "
+          f"{fwd_err:.3e} (tol 1e-5)")
+    assert fwd_equal, f"{name}: batched forward differs from single launches"
+    assert bwd_err <= bwd_tol and plain_bwd_err <= bwd_tol, name
+    assert fwd_err <= 1e-5, name
+    bwd_plain = device_ms(lambda: torch.autograd.grad(
+        out_p, master_p, grad_out, retain_graph=True), PROFILE_ITERS)
+    del out_p, gt_p, master_p
+
+    with torch.no_grad():
+        fwd = device_ms(lambda: k1.grid_encode_cuda(x, table, enc),
+                        PROFILE_ITERS)
+        fwd1 = device_ms(singles_fwd, PROFILE_ITERS)
+        bwd = device_ms(lambda: k1.grid_encode_cuda_backward(
+            x, grad_out, enc, bf16), PROFILE_ITERS)
+        bwd1 = device_ms(singles_bwd, PROFILE_ITERS)
+        plain = device_ms(lambda: grid_encode_plain(x, master, enc,
+                                                    table_dtype),
+                          PROFILE_ITERS)
+    times = {
+        "fwd_ms": named_ms(fwd, "grid_encode_fwd_kernel"),
+        f"fwd_ms_{SCENES}_single_launches": named_ms(
+            fwd1, "grid_encode_fwd_kernel"),
+        "fwd_event_ms": event_ms(lambda: k1.grid_encode_cuda(x, table, enc),
+                                 TIMING_ITERS),
+        "fwd_plain_ms": sum(plain.values()),
+        "bwd_ms": named_ms(bwd, "grid_encode_bwd_kernel"),
+        f"bwd_ms_{SCENES}_single_launches": named_ms(
+            bwd1, "grid_encode_bwd_kernel"),
+        "bwd_plain_ms": sum(bwd_plain.values()),
+        "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": plain_bwd_err,
+    }
+    # bytes: points, tables (read) or their f32 gradients (written), and
+    # the (S, N, L*C) f32 encodings (written) or their gradient (read)
+    times["fwd_bound_ms"], _ = _bound(_nbytes(x, table, out))
+    times["bwd_bound_ms"], _ = _bound(_nbytes(x, grad_out, gt))
+    print(f"kernel {name} device ms per call (torch.profiler, mean of "
+          f"{PROFILE_ITERS}): " + json.dumps(times))
+    return times
+
+
+def scene_kernel_phase():
+    """K1's scene axis at the loop's two widths: ``NGPConfig()`` (16 x C2,
+    f32 tables) and the TPU preset's 8 x C4 read in bf16."""
+    from sparsefusion_tpu_torch.nn.ngp import NGPConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    times = {
+        "ngp_16xC2_f32": scene_kernel_case(
+            f"ngp_16xC2_f32_{SCENES}_scenes", NGPConfig().encoding(), None,
+            gen),
+        "ngp_8xC4_bf16": scene_kernel_case(
+            f"ngp_8xC4_bf16_{SCENES}_scenes",
+            NGPConfig(num_levels=8, level_dim=4).encoding(), "bfloat16",
+            gen)}
+    torch.cuda.empty_cache()
+    return times
+
+
 def small_input_step_check():
     """One full-width input step on a 16^2 render of a small scene, on the
     card and on the CPU from the same weights and draws."""
@@ -417,7 +553,7 @@ def small_input_step_check():
         assert rel <= 5e-2, f"gradient of {name} disagrees"
 
 
-def input_step_profile(preset="reference"):
+def input_step_profile(preset="reference", n_scenes=None):
     """The NGP-only demo's input step at full width (a 256 px synthetic
     scene, 128^2 renders): 5 warm steps, then PROFILE_STEPS steps under
     torch.profiler.  Reports device time per step by kernel, the kernels'
@@ -427,8 +563,11 @@ def input_step_profile(preset="reference"):
     rays, 8 x C4 bf16 table) in both of its render modes: 32+32 two-phase
     through the all-occupied bitfield, as before ``occupancy_start``, and
     the 32-sample march inside the bitfield of one grid update of the
-    (untrained) field.  Returns {mode: stats}."""
+    (untrained) field.  With ``n_scenes``, the scene-batched input step
+    of the batched loop: ``n_scenes`` fields stacked, each rendering the
+    view at full width.  Returns {mode: stats}."""
     from sparsefusion_tpu_torch.core.cameras import (
+        concat_cameras,
         get_camera_slice,
         get_relative_cameras,
     )
@@ -441,7 +580,7 @@ def input_step_profile(preset="reference"):
         tpu_distill_config,
     )
     from sparsefusion_tpu_torch.kernels import grid_encode
-    from sparsefusion_tpu_torch.nn.ngp import NGPField
+    from sparsefusion_tpu_torch.nn.ngp import NGPField, NGPFieldStack
     from sparsefusion_tpu_torch.render.occupancy import OccupancyGrid
     from sparsefusion_tpu_torch.render.volume import VolumeRendererConfig
 
@@ -454,13 +593,18 @@ def input_step_profile(preset="reference"):
         bound=cfg.bound, min_near=cfg.min_near,
         max_ray_batch=cfg.max_ray_batch)
     field = NGPField(cfg.ngp, device="cuda", generator=gen)
+    if n_scenes:
+        field = NGPFieldStack([field] + [
+            NGPField(cfg.ngp, device="cuda", generator=gen)
+            for _ in range(n_scenes - 1)])
     steps = make_scene_step_fns(field, cfg, make_ngp_optimizer(cfg, field),
                                 size // cfg.hw_scale, size)
     cams = get_relative_cameras(scene.cameras("cuda"), [0],
                                 center_at_origin=False)
     rgb = torch.as_tensor(scene.images, device="cuda")
     mask = torch.as_tensor(scene.masks, device="cuda")
-    modes = {preset: (vcfg, None)}
+    modes = {f"{preset}_{n_scenes}_scenes" if n_scenes else preset:
+             (vcfg, None)}
     if preset == "tpu":
         grid = OccupancyGrid(bound=cfg.bound,
                              density_thresh=cfg.density_thresh, device="cuda")
@@ -472,9 +616,13 @@ def input_step_profile(preset="reference"):
     for label, (vc, bitfield) in modes.items():
         def step(i):
             v = i % 2
-            return float(steps.input_step(vc, get_camera_slice(cams, [v]),
-                                          rgb[v], mask[v], gen,
-                                          bitfield=bitfield))
+            cam, gt, m = get_camera_slice(cams, [v]), rgb[v], mask[v]
+            if n_scenes:
+                cam = concat_cameras([cam] * n_scenes)
+                gt = gt.expand(n_scenes, *gt.shape)
+                m = m.expand(n_scenes, *m.shape)
+            return steps.input_step(vc, cam, gt, m, gen,
+                                    bitfield=bitfield).sum().item()
 
         for i in range(5):
             step(i)
@@ -1094,16 +1242,19 @@ def _loop_demo(argv, variant):
                               save_dir=exp_dir)]
 
 
-def diffusion_main_path(variant="f32", max_itr=40):
+def diffusion_main_path(variant="f32", max_itr=40, lpips_spec=None):
     """The full-width diffusion demo, ``max_itr`` iterations, fusion after
-    20: through ``cli/demo.py::main`` (``variant`` "f32"), or through
-    ``distillation_loop`` with the bf16 sampler ("bf16_sampler") or the
-    TPU preset ("tpu": occupancy from iteration 10, single-pass marching,
-    4096-ray input and fusion gradient steps)."""
+    20: through ``cli/demo.py::main`` (``variant`` "f32", and "lpips" with
+    ``--lpips_weights lpips_spec``: the perceptual term and the eval's
+    column), or through ``distillation_loop`` with the bf16 sampler
+    ("bf16_sampler") or the TPU preset ("tpu": occupancy from iteration
+    10, single-pass marching, 4096-ray input and fusion gradient
+    steps)."""
     from sparsefusion_tpu_torch.cli.demo import main as demo_main
 
     sampler_bf16 = variant == "bf16_sampler"
-    with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_") as exp_dir:
+    with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_") as exp_dir, \
+            _PhaseB() as phase_b:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
@@ -1111,6 +1262,8 @@ def diffusion_main_path(variant="f32", max_itr=40):
         argv = DEMO_ARGV + ["--max_itr", str(max_itr), "--exp_dir", exp_dir]
         if variant == "f32":
             results = demo_main(argv)
+        elif variant == "lpips":
+            results = demo_main(argv + ["--lpips_weights", lpips_spec])
         else:
             results = _loop_demo(argv, variant)
         torch.cuda.synchronize()
@@ -1126,12 +1279,17 @@ def diffusion_main_path(variant="f32", max_itr=40):
     n_fusion = max_itr - 21                 # iterations 21..max_itr - 1
     boot_its = 20 / (t[20] - t[0])          # iterations 1..20
     fusion_s = t[max_itr - 1] - t[20]
-    stats = {"phase_a_s": r["cache_seconds"], "bootstrap_it_per_s": boot_its,
+    stats = {"phase_a_s": r["cache_seconds"],
+             "it_per_s": (max_itr - 1) / (t[max_itr - 1] - t[0]),
+             "bootstrap_it_per_s": boot_its,
              "fusion_it_per_s": n_fusion / fusion_s,
              "unet_evals": r["unet_evals"],
              "unet_evals_per_s": r["unet_evals"] / fusion_s,
              "peak_gib": peak / 2 ** 30, "wall_s": wall,
-             "psnr": r["metrics"]["psnr"], "ssim": r["metrics"]["ssim"]}
+             "psnr": r["metrics"]["psnr"], "ssim": r["metrics"]["ssim"],
+             "phase_b_launches": phase_b.k1()}
+    if variant == "lpips":
+        stats["lpips"] = r["metrics"]["lpips"]
     occ, modes = r["occupancy"], r["render_modes"]
     if variant == "tpu":
         stats.update({"render_modes": modes,
@@ -1141,7 +1299,8 @@ def diffusion_main_path(variant="f32", max_itr=40):
                       "occupied_share": occ["occupied_share"]})
     label = "diffusion main path" + {"f32": "", "bf16_sampler":
                                      " (bf16 sampler)",
-                                     "tpu": " (TPU preset)"}[variant]
+                                     "tpu": " (TPU preset)",
+                                     "lpips": " (LPIPS)"}[variant]
     print(f"{label}: " + json.dumps(stats))
     print(f"{label}: launches {json.dumps(launches)}; "
           f"files {json.dumps(written)}")
@@ -1172,6 +1331,8 @@ def diffusion_main_path(variant="f32", max_itr=40):
     else:
         assert occ is None and modes["march"] == 0, modes
         assert r["fusion_subset_steps"] == 0
+    if variant == "lpips":
+        assert math.isfinite(r["metrics"]["lpips"]), r["metrics"]
     return launches, stats
 
 
@@ -1182,7 +1343,8 @@ def tpu_ngp_main_path():
     K1's 8 x C4 bf16 instance must carry every forward launch."""
     from sparsefusion_tpu_torch.cli.demo import main as demo_main
 
-    with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_") as exp_dir:
+    with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_") as exp_dir, \
+            _PhaseB() as phase_b:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
@@ -1207,6 +1369,7 @@ def tpu_ngp_main_path():
     upd_after = sum(s for i, s in zip(occ["update_itrs"],
                                       occ["update_seconds"]) if i > start)
     stats = {
+        "it_per_s": (len(t) - 1) / (t[-1] - t[0]),
         "it_per_s_two_phase": (start - 1) / (t[start - 1] - t[0]),
         "it_per_s_march": (len(t) - 1 - start) / (t[-1] - t[start]),
         "it_per_s_march_without_grid_updates":
@@ -1218,7 +1381,8 @@ def tpu_ngp_main_path():
         "wall_s": wall, "psnr": r["metrics"]["psnr"],
         "ssim": r["metrics"]["ssim"],
         "loss_first10": float(losses[:10].mean()),
-        "loss_last10": float(losses[-10:].mean())}
+        "loss_last10": float(losses[-10:].mean()),
+        "phase_b_launches": phase_b.k1()}
     print("TPU preset NGP-only main path: " + json.dumps(stats))
     print(f"TPU preset NGP-only main path: launches {json.dumps(launches)}")
     assert len(losses) == 600 and np.isfinite(losses).all()
@@ -1243,7 +1407,8 @@ def main_path():
         reset_launches,
     )
 
-    with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_") as exp_dir:
+    with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_") as exp_dir, \
+            _PhaseB() as phase_b:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -1284,7 +1449,329 @@ def main_path():
     assert r["renders"].shape == (10, 256, 256, 3)
     assert np.isfinite(r["renders"]).all()
     return launches, {"it_per_s": its, "peak_gib": peak / 2 ** 30,
-                      "wall_s": wall, "psnr": psnr}
+                      "wall_s": wall, "psnr": psnr,
+                      "phase_b_launches": phase_b.k1()}
+
+
+class _PhaseB:
+    """Instrumentation of one demo run: the kernels' launch counts when the
+    first scene's eval (Phase C) starts, which are Phase B's and Phase A's
+    (Phase A launches no K1), and the batch of every UNet evaluation."""
+
+    def __enter__(self):
+        from sparsefusion_tpu_torch.distill import batched, loop
+        from sparsefusion_tpu_torch.models import SparseFusionModels
+
+        self.counts, self.unet_batches = None, []
+        self._patched = [(loop, "evaluate_scene", loop.evaluate_scene),
+                         (batched, "evaluate_scene", batched.evaluate_scene),
+                         (SparseFusionModels, "denoise_fn",
+                          SparseFusionModels.denoise_fn)]
+        evaluate, denoise = loop.evaluate_scene, SparseFusionModels.denoise_fn
+
+        def evaluate_scene(*args, **kw):
+            if self.counts is None:
+                self.counts = _read_counts()
+            return evaluate(*args, **kw)
+
+        def denoise_fn(models, x, *args, **kw):
+            self.unet_batches.append(x.shape[0])
+            return denoise(models, x, *args, **kw)
+
+        loop.evaluate_scene = batched.evaluate_scene = evaluate_scene
+        SparseFusionModels.denoise_fn = denoise_fn
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._patched:
+            setattr(owner, name, fn)
+        return False
+
+    def k1(self):
+        return {k: v for k, v in self.counts.items()
+                if k.startswith("grid_encode")}
+
+
+def _lpips_state_dicts(seed=0):
+    """Seeded stand-ins for a torchvision ``vgg16`` state dict (He-normal
+    convolutions, small biases) and an lpips ``lin`` one (non-negative
+    heads): no LPIPS weights ship with the repository, so only agreement
+    and cost are measured, not what the distances mean."""
+    from sparsefusion_tpu_torch.nn.lpips import LPIPS
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in LPIPS().state_dict().items()}
+    vgg, lin = {}, {}
+    for name, shape in shapes.items():
+        if not name.startswith("vgg."):
+            lin[name] = torch.randn(shape, generator=g).abs() * 0.1
+        elif name.endswith("weight"):
+            fan_in = math.prod(shape[1:])
+            vgg[name[len("vgg."):]] = torch.randn(
+                shape, generator=g) * math.sqrt(2.0 / fan_in)
+        else:
+            vgg[name[len("vgg."):]] = torch.randn(shape, generator=g) * 0.01
+    return vgg, lin
+
+
+def _vgg_ops(h, w):
+    """Operations of one VGG16 feature pass (LPIPS's five stages) on an
+    h x w image: 2 per multiply-add of every 3x3 convolution."""
+    from sparsefusion_tpu_torch.nn.lpips import VGG16Features
+
+    with torch.device("meta"):
+        layers = VGG16Features().features
+    ops = 0
+    for layer in layers:
+        if isinstance(layer, torch.nn.Conv2d):
+            ops += 2 * h * w * layer.in_channels * layer.out_channels * 9
+        elif isinstance(layer, torch.nn.MaxPool2d):
+            h, w = h // 2, w // 2
+    return ops
+
+
+def lpips_card_check(vgg, lin):
+    """LPIPS on the card against the CPU at 64 px (batch 2, TF32 off):
+    the distances and their gradient in ``img0`` to 1e-4 relative (the
+    gradient against its largest entry): cuDNN's f32 convolutions sum in
+    another order than the CPU's."""
+    from sparsefusion_tpu_torch.nn.lpips import LPIPS
+
+    rng = np.random.RandomState(4)
+    a = torch.tensor(rng.rand(2, 64, 64, 3), dtype=torch.float32)
+    b = torch.tensor(rng.rand(2, 64, 64, 3), dtype=torch.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = LPIPS().load_torch_weights(vgg, lin).to(dev)
+        x = a.to(dev).requires_grad_()
+        d = model.requires_grad_(False)(x, b.to(dev), normalize=True)
+        (g,) = torch.autograd.grad(d.sum(), x)
+        out[dev] = (d.detach().cpu(), g.cpu())
+    (d_c, g_c), (d_g, g_g) = out["cpu"], out["cuda"]
+    stats = {"value_rel": ((d_c - d_g).abs() / d_c.abs()).max().item(),
+             "grad_rel": ((g_c - g_g).abs().max()
+                          / g_c.abs().max()).item(),
+             "values": d_c.tolist()}
+    print("LPIPS cpu vs cuda (64 px): " + json.dumps(stats))
+    assert stats["value_rel"] <= 1e-4 and stats["grad_rel"] <= 1e-4, stats
+    return stats
+
+
+def lpips_fusion_term_profile(spec, size=256):
+    """The perceptual term of one fusion step at full width: LPIPS of the
+    (1, 256, 256, 3) render against its target, and the render's
+    gradient (the weights are frozen), in a ``record_function`` range,
+    PROFILE_ITERS times: device ms beside its operations bound (three
+    VGG16 passes: two forward, one backward to the input) at the f32
+    rate."""
+    from sparsefusion_tpu_torch.nn.lpips import build_lpips_fn
+
+    lpips_fn = build_lpips_fn(spec, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    img = torch.rand(1, size, size, 3, device="cuda", generator=gen)
+    pred = torch.rand(1, size, size, 3, device="cuda", generator=gen)
+    img.requires_grad_()
+
+    def run(n=PROFILE_ITERS):
+        for _ in range(n):
+            with torch.profiler.record_function("lpips_fusion_term"):
+                torch.autograd.grad(lpips_fn(img, pred).sum(), img)
+
+    run(2)
+    per_call, _, host_ms = profile_window(run, PROFILE_ITERS)
+    ops = 3 * _vgg_ops(size, size)
+    bound, bound_by = _bound(_nbytes(img, pred), ops)
+    stats = {"device_ms": sum(per_call.values()), "host_ms": host_ms,
+             "gflop": ops / 1e9, "bound_ms": bound, "bound_by": bound_by}
+    stats["bound_share"] = bound / stats["device_ms"]
+    print("LPIPS fusion term (forward + input backward, 256 px): "
+          + json.dumps(stats))
+    for name, ms in sorted(per_call.items(), key=lambda kv: -kv[1])[:4]:
+        print(f"  {ms:8.3f} ms {name[:110]}")
+    return stats
+
+
+def small_batched_steps_check():
+    """One scene-batched input, bootstrap and fusion step (S = 2 scenes on
+    an ``NGPFieldStack`` at full width; narrow UNet and VAE, 2-step PLMS
+    at batch 2) on the card and on the CPU from the same weights and
+    draws, at the single-scene checks' tolerances: losses 1e-5 (input) /
+    1e-4 relative, gradients 5e-2 relative (Frobenius) per parameter and
+    scene."""
+    import copy
+
+    from sparsefusion_tpu_torch.core.cameras import (
+        concat_cameras,
+        get_camera_slice,
+        get_relative_cameras,
+    )
+    from sparsefusion_tpu_torch.data.synthetic import make_synthetic_scene
+    from sparsefusion_tpu_torch.distill.loop import (
+        DistillConfig,
+        make_ngp_optimizer,
+        make_scene_step_fns,
+    )
+    from sparsefusion_tpu_torch.nn.ngp import NGPField, NGPFieldStack
+    from sparsefusion_tpu_torch.render.volume import VolumeRendererConfig
+
+    cfg = DistillConfig(max_ray_batch=256, plms_steps=2)
+    vcfg = VolumeRendererConfig(max_ray_batch=256)
+    scenes = [make_synthetic_scene(n_views=2, image_size=32, seed=s)
+              for s in (0, 1)]
+    rng = np.random.RandomState(6)
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32)
+
+    draws = {"jitter": f32(rng.rand(2, 256, 64)),
+             "u": f32(rng.rand(2, 256, 64)),
+             "plms_noise": [f32(rng.randn(2, 4, 4, 4)) for _ in range(4)]}
+    features = f32(rng.randn(2, 256, 4, 4))
+    eft = f32(rng.rand(2, 32, 32, 3))
+    rgb = f32(np.stack([sc.images[0] for sc in scenes]))
+    mask = f32(np.stack([sc.masks[0] for sc in scenes]))
+    models_cpu = _small_models(rng)
+    g = torch.Generator().manual_seed(0)
+    inits = [NGPField(cfg.ngp, generator=g).state_dict() for _ in range(2)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        models = copy.deepcopy(models_cpu)
+        for m in (models.eft, models.vae, models.unet):
+            m.to(dev)
+        fields = []
+        for init in inits:
+            fields.append(NGPField(cfg.ngp, device=dev))
+            fields[-1].load_state_dict(init)
+        stack = NGPFieldStack(fields)
+        steps = make_scene_step_fns(stack, cfg,
+                                    make_ngp_optimizer(cfg, stack), 16, 32,
+                                    models=models)
+        cams = concat_cameras([get_camera_slice(get_relative_cameras(
+            sc.cameras(dev), [0], center_at_origin=False), [v])
+            for sc, v in zip(scenes, (0, 1))])
+        d = {k: ([t.to(dev) for t in v] if isinstance(v, list)
+                 else v.to(dev)) for k, v in draws.items()}
+        res = {}
+        for name, fn, args in (
+                ("input", steps.input_losses, (rgb.to(dev), mask.to(dev))),
+                ("bootstrap", steps.bootstrap_losses, (eft.to(dev),)),
+                ("fusion", steps.fusion_losses, (features.to(dev), 0.6))):
+            stack.zero_grad()
+            loss = fn(vcfg, cams, *args, draws=d)
+            loss.sum().backward()
+            res[name] = (loss.detach().cpu(), {
+                n: p.grad.cpu().clone() for n, p in stack.named_parameters()})
+        out[dev] = res
+    stats = {}
+    for name, tol in (("input", 1e-5), ("bootstrap", 1e-4),
+                      ("fusion", 1e-4)):
+        (l_c, g_c), (l_g, g_g) = out["cpu"][name], out["cuda"][name]
+        stats[f"{name}_loss_rel"] = ((l_c - l_g).abs() / l_c.abs()).max() \
+            .item()
+        stats[f"{name}_grad_rel_max"] = max(
+            ((g_c[n][s] - g_g[n][s]).norm() / g_c[n][s].norm()).item()
+            for n in g_c for s in range(2))
+        print(f"batched {name} step (S = 2) cpu vs cuda: losses "
+              f"{l_c.tolist()} vs {l_g.tolist()}; worst gradient "
+              f"{stats[f'{name}_grad_rel_max']:.3e}")
+        assert stats[f"{name}_loss_rel"] <= tol, name
+        assert stats[f"{name}_grad_rel_max"] <= 5e-2, name
+        assert all(torch.isfinite(v).all() for v in g_g.values())
+    return stats
+
+
+BATCH_ARGV = ["-d", "synthetic", "-c", "any",
+              "-i", ",".join(str(i) for i in range(SCENES)), "-v", "2",
+              "--image_size", "256", "--scene_batch", str(SCENES),
+              "--device", "cuda"]
+# per kind: the arguments, and the single-scene run it is held against
+BATCH_RUNS = {
+    "ngp": ["--max_itr", "100", "--no_diffusion"],
+    "diffusion": ["--max_itr", "40", "--start_fusion", "20"],
+    "tpu": ["--max_itr", "600", "--no_diffusion", "--preset", "tpu"],
+}
+
+
+def batched_main_path(kind, single):
+    """SCENES synthetic scenes through the CLI with ``--scene_batch
+    SCENES``: one bucket, so one lockstep group (``distill/batched.py``).
+    ``kind`` "ngp" (``DistillConfig()``, 100 iterations), "diffusion" (40,
+    fusion after 20) or "tpu" (``--preset tpu --no_diffusion``, 600: the
+    batched occupancy grids and marching).  ``single`` is the stats of
+    the same configuration's single-scene run in this smoke: K1 must
+    launch as often in the batched Phase B as there, each launch for all
+    SCENES scenes; K2 three times a UNet evaluation, each at batch
+    SCENES."""
+    from sparsefusion_tpu_torch.cli.demo import main as demo_main
+
+    with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_") as exp_dir, \
+            _PhaseB() as phase_b:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        results = demo_main(BATCH_ARGV + BATCH_RUNS[kind]
+                            + ["--exp_dir", exp_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        written = all(os.path.exists(os.path.join(
+            exp_dir, "metrics", f"any_{i:03d}_c2.txt")) for i in range(SCENES))
+
+    assert len(results) == SCENES
+    r = results[0]
+    t = np.asarray(r["iter_times"])
+    max_itr = len(t)
+    k1 = phase_b.k1()
+    stats = {"scene_it_per_s": SCENES * (max_itr - 1) / (t[-1] - t[0]),
+             "single_scene_it_per_s": single["it_per_s"],
+             "k1_fwd_launches_per_itr": k1["grid_encode_fwd"] / max_itr,
+             "k1_bwd_launches_per_itr": k1["grid_encode_bwd"] / max_itr,
+             "single_k1_fwd_launches_per_itr":
+                 single["phase_b_launches"]["grid_encode_fwd"] / max_itr,
+             "peak_gib": peak / 2 ** 30, "wall_s": wall,
+             "psnr": [x["metrics"]["psnr"] for x in results],
+             "ssim": [x["metrics"]["ssim"] for x in results],
+             "phase_b_launches": k1}
+    if kind == "diffusion":
+        n_fusion = max_itr - 21
+        fusion_s = t[max_itr - 1] - t[20]
+        stats.update({
+            "scene_fusion_it_per_s": SCENES * n_fusion / fusion_s,
+            "single_scene_fusion_it_per_s": single["fusion_it_per_s"],
+            "scene_bootstrap_it_per_s": SCENES * 20 / (t[20] - t[0]),
+            "single_scene_bootstrap_it_per_s": single["bootstrap_it_per_s"],
+            "unet_evals": r["unet_evals"], "phase_a_s": r["cache_seconds"],
+            "unet_batches": sorted(set(phase_b.unet_batches))})
+    if kind == "tpu":
+        stats["render_modes"] = r["render_modes"]
+        stats["occupied_share"] = [x["occupancy"]["occupied_share"]
+                                   for x in results]
+    print(f"scene batch ({kind}, S = {SCENES}): " + json.dumps(stats))
+    print(f"scene batch ({kind}): launches {json.dumps(launches)}")
+    assert written
+    for x in results:
+        assert len(x["losses"]) == max_itr and np.isfinite(x["losses"]).all()
+        assert x["renders"].shape == (10, 256, 256, 3)
+        assert np.isfinite(x["renders"]).all()
+    # one launch a kernel and operation for all SCENES scenes: as many as
+    # the single-scene run's Phase B, each encoding SCENES scenes
+    for name in ("grid_encode_fwd", "grid_encode_bwd"):
+        assert k1[name] == single["phase_b_launches"][name] > 0, (
+            name, k1, single["phase_b_launches"])
+        assert k1[f"{name}_scenes"] == SCENES * k1[name], k1
+    if kind == "diffusion":
+        assert launches["imagen_attention"] == 3 * r["unet_evals"] > 0
+        assert stats["unet_batches"] == [SCENES], stats["unet_batches"]
+        assert len(x["fusion_losses"]) == max_itr
+    else:
+        assert all(p >= 15.0 for p in stats["psnr"]), stats["psnr"]
+    if kind == "tpu":
+        assert r["render_modes"] == {"two_phase": 500, "march": 100}
+        assert launches["grid_encode_fwd_bf16"] == launches["grid_encode_fwd"]
+    return launches, k1, stats
 
 
 TRAIN_TINY = ["-c", "any", "-d", "synthetic", "--preset", "tiny",
@@ -1442,14 +1929,19 @@ def _read_counts():
     """Launches since the last reset; ``imagen_attention`` counts both of
     K2's instances, ``imagen_attention_bf16`` the bf16 one,
     ``imagen_attention_bf16_wgmma`` the bf16 one's wgmma body;
-    ``grid_encode_fwd_bf16`` K1 forward's launches on a bf16 table."""
+    ``grid_encode_fwd_bf16`` K1 forward's launches on a bf16 table;
+    ``grid_encode_{fwd,bwd}_scenes`` the scenes K1's launches encoded (a
+    scene-batched launch counts once in the launches and S times here)."""
     from sparsefusion_tpu_torch.kernels import attention, grid_encode
 
     torch.cuda.synchronize()
     return {"grid_encode_fwd": grid_encode.grid_encode_cuda.launches,
             "grid_encode_fwd_bf16":
                 grid_encode.grid_encode_cuda.launches_bf16,
+            "grid_encode_fwd_scenes": grid_encode.grid_encode_cuda.scenes,
             "grid_encode_bwd": grid_encode.grid_encode_cuda_backward.launches,
+            "grid_encode_bwd_scenes":
+                grid_encode.grid_encode_cuda_backward.scenes,
             "imagen_attention": attention.imagen_attention_cuda.launches,
             "imagen_attention_bf16":
                 attention.imagen_attention_cuda.launches_bf16,
@@ -1812,6 +2304,7 @@ def main(argv=None) -> int:
 
     _mark("build")
     errs, times = kernel_phase()
+    scene_times = scene_kernel_phase()
     _mark("K1 kernel phase")
     attn_err, attn_times, _ = attention_phase(torch.float32)
     bf16_err, bf16_times, bf16_phase_bodies = attention_phase(torch.bfloat16)
@@ -1819,13 +2312,17 @@ def main(argv=None) -> int:
     k3_launches, k3_micro, k3_f32, k3_err = row_gather_phase()
     _mark("K3 kernel phase")
     step_stats = input_step_profile()["reference"]
+    step_stats_scenes = input_step_profile(n_scenes=SCENES)
     _mark("input step profile")
     if args.kernels_only:
-        print(json.dumps({"kernel_times": times, "attention": attn_times,
+        print(json.dumps({"kernel_times": times,
+                          "scene_kernel_times": scene_times,
+                          "attention": attn_times,
                           "attention_bf16": bf16_times,
                           "row_gather": {str(n): m for n, m in
                                          k3_micro.items()},
-                          "input_step": step_stats}))
+                          "input_step": step_stats,
+                          "input_step_scenes": step_stats_scenes}))
         return 0
     for instance in ("imagen_attention_fwd", "imagen_attention_bf16_fwd"):
         assert any(c["HMMA"] > 0 for f, c in sass.items()
@@ -1835,19 +2332,45 @@ def main(argv=None) -> int:
     small_input_step_check()
     small_diffusion_steps_check()
     small_diffusion_steps_check(sampler_bf16=True)
+    small_batched_steps_check()
     _mark("steps card vs CPU")
     small_occupancy_steps_check(occupancy_card_check())
     _mark("occupancy card vs CPU")
-    ngp_launches, _ = main_path()
-    tpu_ngp_launches, _ = tpu_ngp_main_path()
+    ngp_launches, ngp_stats = main_path()
+    tpu_ngp_launches, tpu_ngp_stats = tpu_ngp_main_path()
     _mark("NGP-only demos")
-    launches, _ = diffusion_main_path()
+    # per kind: the whole run's launches, and K1's in Phase B (every one
+    # of them scene-batched)
+    batch_launches, batch_k1 = {}, {}
+    batch_launches["ngp"], batch_k1["ngp"], _ = batched_main_path(
+        "ngp", ngp_stats)
+    batch_launches["tpu"], batch_k1["tpu"], _ = batched_main_path(
+        "tpu", tpu_ngp_stats)
+    _mark("scene-batched NGP-only demos")
+    launches, diffusion_stats = diffusion_main_path()
     # 30 iterations: 9 fusion iterations where the others run 19, which
     # keeps the whole run within the time it took before the TPU preset's
     # paths were added
     bf16_launches, _ = diffusion_main_path("bf16_sampler", max_itr=30)
     tpu_launches, _ = diffusion_main_path("tpu")
     _mark("diffusion demos")
+    batch_launches["diffusion"], batch_k1["diffusion"], _ = \
+        batched_main_path("diffusion", diffusion_stats)
+    _mark("scene-batched diffusion demo")
+    vgg, lin = _lpips_state_dicts()
+    lpips_card_check(vgg, lin)
+    with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_lpips_") as d:
+        spec = f"{d}/vgg16.pth,{d}/lpips_vgg.pth"
+        torch.save(vgg, f"{d}/vgg16.pth")
+        torch.save(lin, f"{d}/lpips_vgg.pth")
+        lpips_term = lpips_fusion_term_profile(spec)
+        lpips_launches, lpips_stats = diffusion_main_path("lpips",
+                                                          lpips_spec=spec)
+    print("LPIPS demo against the f32 demo: fusion it/s "
+          f"{lpips_stats['fusion_it_per_s']:.4f} vs "
+          f"{diffusion_stats['fusion_it_per_s']:.4f}; LPIPS term "
+          f"{lpips_term['device_ms']:.3f} device ms a fusion step")
+    _mark("LPIPS demo")
     unet_eval_profile()
     _mark("UNet evaluation profile")
     small_train_step_check()
@@ -1876,6 +2399,9 @@ def main(argv=None) -> int:
     paths = {"ngp_demo": {"grid_encode_fwd": ngp_launches["grid_encode_fwd"],
                           "grid_encode_bwd": ngp_launches["grid_encode_bwd"]},
              "diffusion_demo": launches, "train": train_launches,
+             "lpips_diffusion_demo": lpips_launches,
+             **{f"scene_batch_{kind}": counts
+                for kind, counts in batch_launches.items()},
              "diffusion_demo_bf16_sampler": bf16_launches,
              "train_bf16": bf16_train_launches,
              "tpu_preset_ngp_demo": tpu_ngp_launches,
@@ -1935,6 +2461,27 @@ def main(argv=None) -> int:
         _k3_entry(k3_launches, k3_micro, k3_f32, k3_err,
                   tr["fwd_warp_sectors_per_s"]),
     ]
+    st = scene_times["ngp_16xC2_f32"]
+    for direction, replaces in (("fwd", "grid_gather.py:79"),
+                                ("bwd", "grid_gather.py:133")):
+        batched = {f"scene_batch_{kind}": c[f"grid_encode_{direction}"]
+                   for kind, c in batch_k1.items()}
+        kernels.append({
+            "name": f"grid_encode_{direction}_scenes", "route": "cuda",
+            "source": src, "replaces": f"sparsefusion_tpu/kernels/{replaces}",
+            "scenes": SCENES, "launches": sum(batched.values()),
+            "launches_by_path": batched,
+            "max_abs_err": max(t[f"{direction}_max_abs_err"]
+                               for t in scene_times.values()),
+            "ms": st[f"{direction}_ms"],
+            f"ms_{SCENES}_single_launches":
+                st[f"{direction}_ms_{SCENES}_single_launches"],
+            "plain_ms": st[f"{direction}_plain_ms"],
+            "bound_ms": st[f"{direction}_bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "bf16_8xC4": {key: scene_times["ngp_8xC4_bf16"][
+                f"{direction}_{key}"] for key in (
+                    "ms", f"ms_{SCENES}_single_launches", "bound_ms")}})
     assert all(math.isfinite(k["ms"]) for k in kernels)
     assert all(k["launches"] > 0 for k in kernels), \
         [(k["name"], k["launches"]) for k in kernels]

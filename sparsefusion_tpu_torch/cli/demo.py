@@ -17,10 +17,17 @@ rehearsals, and the full-width UNet needs latents of 8 x 8 or more.
 (``distill/loop.py::tpu_distill_config``: 8 x C4 bf16 tables, occupancy
 grid, single-pass marching, 4096-ray input and fusion gradient steps);
 ``--preset auto`` picks it, as the JAX demo does, only on a TPU backend,
-so here always ``reference`` (``DistillConfig()``).  LPIPS and
-``--scene_batch > 1`` raise ``NotImplementedError`` naming their ROADMAP
-item; ``--no_fused`` and ``-g`` / ``-p`` are accepted and change
-nothing.  With ``--device cuda``
+so here always ``reference`` (``DistillConfig()``).  ``--lpips_weights``
+(a converted ``.npz``, or a ``vgg16.pth,lpips_vgg.pth`` pair of torch
+state dicts: ``nn/lpips.py::build_lpips_fn``) adds the fusion loss's
+perceptual term and the eval's LPIPS column; missing files print a
+warning and the run goes on without them.  ``--scene_batch N`` buckets
+the scenes by (frame count, image size, context size), chunks each
+bucket to N, and distills each chunk of two or more in lockstep
+(``distill/batched.py``), a chunk of one sequentially; the JAX demo's
+rule that sets ``scene_batch`` to the local chip count does not apply
+(one card a process).  ``--no_fused`` and ``-g`` / ``-p`` are accepted
+and change nothing.  With ``--device cuda``
 and no CUDA device the demo raises; it never continues on the CPU.
 
 Several processes (``SF_COORDINATOR`` / ``SF_NUM_PROCESSES`` /
@@ -61,7 +68,8 @@ def parse_args(argv=None):
     p.add_argument("--image_size", type=int, default=256)
     p.add_argument("--no_diffusion", action="store_true")
     p.add_argument("--lpips_weights", type=str, default=None,
-                   help="LPIPS weights (not ported yet)")
+                   help="LPIPS weights: a converted .npz or "
+                        "'vgg16.pth,lpips_vgg.pth'")
     p.add_argument("--resnet18", type=str, default=None,
                    help="torchvision resnet18 state dict for the EFT trunk")
     p.add_argument("--preset", type=str, default="auto",
@@ -74,7 +82,7 @@ def parse_args(argv=None):
                    help="accepted for compatibility; the port has no "
                         "fused dispatch programs")
     p.add_argument("--scene_batch", type=int, default=1,
-                   help="scenes distilled in lockstep (only 1 is ported)")
+                   help="scenes distilled in lockstep on one device")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device the demo runs on (cuda or cpu)")
     args = p.parse_args(argv)
@@ -170,12 +178,15 @@ def main(argv=None):
     """Run the demo; returns the per-scene results of the loop."""
     args = parse_args(argv)
     from sparsefusion_tpu_torch.cli.check_args import check_args
+    from sparsefusion_tpu_torch.distill.batched import (
+        batched_distillation_loop,
+    )
     from sparsefusion_tpu_torch.distill.loop import (
-        NOT_PORTED_LPIPS,
         DistillConfig,
         distillation_loop,
         tpu_distill_config,
     )
+    from sparsefusion_tpu_torch.nn.lpips import build_lpips_fn
 
     from sparsefusion_tpu_torch.parallel.mesh import (
         maybe_init_distributed,
@@ -188,12 +199,6 @@ def main(argv=None):
     check_args(args)
     set_tf32(False)
     device = resolve_device(args.device)
-    if args.lpips_weights is not None:
-        raise NotImplementedError(NOT_PORTED_LPIPS)
-    if args.scene_batch > 1:
-        raise NotImplementedError(
-            "scene batches (distill/batched.py) are not ported yet: "
-            "ROADMAP.md section 1, item 13")
 
     maybe_init_distributed(device.type)
     rank, world = rank_and_world()
@@ -208,13 +213,14 @@ def main(argv=None):
         os.makedirs(os.path.join(args.exp_dir, sub), exist_ok=True)
 
     models = None if args.no_diffusion else build_trio(args, device)
+    lpips_fn = build_lpips_fn(args.lpips_weights, device)
     dataset = load_dataset(args, device)
     # the JAX demo's 'auto' picks the TPU preset on a TPU backend only
     preset = "reference" if args.preset == "auto" else args.preset
     make_cfg = tpu_distill_config if preset == "tpu" else DistillConfig
     cfg = make_cfg(max_itr=args.max_itr, start_fusion_step=args.start_fusion)
 
-    results = []
+    entries = []
     for val_idx in val_list:
         scene = dataset[val_idx]
         input_idx = select_input_views(args.val_seed, val_idx, len(scene),
@@ -222,12 +228,39 @@ def main(argv=None):
         print("val_idx", val_idx, input_idx)
         scene.sequence_name = \
             f"{args.category}_{val_idx:03d}_c{len(input_idx)}"
+        entries.append((val_idx, scene, input_idx))
+
+    results = []
+    for group in scene_groups(entries, args.scene_batch):
         generator = torch.Generator(device=device)
-        generator.manual_seed(args.val_seed + val_idx)
-        results.append(distillation_loop(
-            models, scene, input_idx, cfg, generator, save_dir=args.exp_dir,
-            use_diffusion=not args.no_diffusion))
+        generator.manual_seed(args.val_seed + group[0][0])
+        kw = dict(save_dir=args.exp_dir, use_diffusion=not args.no_diffusion,
+                  lpips_fn=lpips_fn)
+        if len(group) == 1:
+            _, scene, input_idx = group[0]
+            results.append(distillation_loop(models, scene, input_idx, cfg,
+                                             generator, **kw))
+        else:
+            print(f"scene batch: {[g[0] for g in group]}")
+            results.extend(batched_distillation_loop(
+                models, [g[1] for g in group], [g[2] for g in group], cfg,
+                generator, **kw))
     return results
+
+
+def scene_groups(entries, scene_batch: int):
+    """(val_idx, scene, input_idx) entries in groups: with ``scene_batch``
+    above 1, bucketed by (frame count, image size, context size), the
+    batched loop's stacking contract, and each bucket chunked to
+    ``scene_batch``; otherwise one a group."""
+    if scene_batch <= 1:
+        return [[e] for e in entries]
+    buckets = {}
+    for e in entries:
+        key = (len(e[1]), e[1].images.shape[1], len(e[2]))
+        buckets.setdefault(key, []).append(e)
+    return [bucket[i:i + scene_batch] for bucket in buckets.values()
+            for i in range(0, len(bucket), scene_batch)]
 
 
 if __name__ == "__main__":

@@ -55,6 +55,15 @@
 // sorted rows would be deterministic).  Points outside the unit box add
 // nothing.
 //
+// Scene axis (the port of jax.vmap over the encode in the scene-batched
+// loop, distill/batched.py): both kernels take S scenes of one encoding
+// in one launch, blockIdx.y the scene.  Scene s's points, table,
+// encodings and gradient sit at s times their per-scene sizes; the level
+// table is shared; the backward's atomics land only in the scene's own
+// (T, C) slice.  The scene offsets are a template flag (kScenes): S = 1
+// launches the single-scene instance, the same code as before the axis.
+// Four scenes' NGPConfig() tables (29.7 MB) still fit the L2 together.
+//
 // Semantics are those of ops/grid_encode.py (the plain version):
 //   pos = x * scale + 0.5; corner = floor(pos) + bit; frac = pos - floor
 //   index = stride-dot (dropped axis: stride 0) or prime-xor hash, uint32
@@ -82,6 +91,7 @@ struct LevelTable {
     float scales[SF_MAX_LEVELS];
     uint32_t strides[SF_MAX_LEVELS][3];
     int use_hash[SF_MAX_LEVELS];
+    uint32_t rows;                  // of one scene's table: offsets[L]
 };
 
 // Corner k of a (point, level): its table row and trilinear weight.
@@ -200,7 +210,7 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ t,
 // chunk is full.  The chunk's levels are unrolled, so the compiler can
 // put the loads of several levels in flight at once.  A chunk past the
 // last level repeats the last level's reads and drops them.
-template <int C, typename T>
+template <int C, typename T, bool kScenes>
 __global__ void __launch_bounds__(256)
 grid_encode_fwd_kernel(const float* __restrict__ x,
                        const T* __restrict__ table, float* __restrict__ out,
@@ -210,9 +220,14 @@ grid_encode_fwd_kernel(const float* __restrict__ x,
     constexpr int G = 8 / C;
     const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (n >= n_points) return;
+    const int lc = L * C;
+    if constexpr (kScenes) {    // this block's scene
+        x += blockIdx.y * n_points * 3;
+        table += (size_t)blockIdx.y * lt.rows * C;
+        out += blockIdx.y * n_points * lc;
+    }
     float p[3] = {0.f, 0.f, 0.f};
     const bool live = load_point(x, n, p);
-    const int lc = L * C;
     float* op = out + n * lc;
     // 16-byte stores where every row of out starts 16-byte aligned
     const bool vec = ((reinterpret_cast<uintptr_t>(out) | (lc * 4)) & 15) == 0;
@@ -309,7 +324,7 @@ __device__ __forceinline__ void warp_merged_add(float* __restrict__ grad_table,
 // one level.  Dynamic shared memory: the tile's grad_out rows at a pitch
 // of L*C + 1 floats (odd, so a warp's reads of one level are conflict
 // free).
-template <int C, bool kBf16>
+template <int C, bool kBf16, bool kScenes>
 __global__ void grid_encode_bwd_kernel(const float* __restrict__ x,
                                        const float* __restrict__ grad_out,
                                        float* __restrict__ grad_table,
@@ -319,6 +334,11 @@ __global__ void grid_encode_bwd_kernel(const float* __restrict__ x,
     const int lc = L * C;
     const int pitch = lc + 1;
     const long long p0 = (long long)blockIdx.x * blockDim.x;
+    if constexpr (kScenes) {    // this block's scene
+        x += blockIdx.y * n_points * 3;
+        grad_out += blockIdx.y * n_points * lc;
+        grad_table += (size_t)blockIdx.y * lt.rows * C;
+    }
     const int np = (int)min((long long)blockDim.x, n_points - p0);
 
     // stage grad_out[p0 : p0 + np] (np * lc contiguous floats)
@@ -382,6 +402,7 @@ static int make_levels(int L, const long long* offsets, const float* scales,
                        const uint32_t* strides, const int* use_hash,
                        LevelTable* lt, int* reductions) {
     if (L < 1 || L > SF_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+    lt->rows = (uint32_t)offsets[L];
     for (int l = 0; l < L; ++l) {
         const uint32_t size = (uint32_t)(offsets[l + 1] - offsets[l]);
         lt->offsets[l] = (uint32_t)offsets[l];
@@ -414,20 +435,28 @@ static const int kThreads = 256;
 
 template <int C>
 static void launch_fwd(const float* x, const void* table, int bf16,
-                       float* out, long long n, int L, const LevelTable& lt,
-                       cudaStream_t s) {
-    unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-    if (bf16)
-        grid_encode_fwd_kernel<C, __nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-            x, (const __nv_bfloat16*)table, out, n, L, lt);
+                       float* out, long long n, int scenes, int L,
+                       const LevelTable& lt, cudaStream_t s) {
+    const dim3 blocks((unsigned)((n + kThreads - 1) / kThreads), scenes);
+    if (bf16 && scenes > 1)
+        grid_encode_fwd_kernel<C, __nv_bfloat16, true>
+            <<<blocks, kThreads, 0, s>>>(x, (const __nv_bfloat16*)table,
+                                         out, n, L, lt);
+    else if (bf16)
+        grid_encode_fwd_kernel<C, __nv_bfloat16, false>
+            <<<blocks, kThreads, 0, s>>>(x, (const __nv_bfloat16*)table,
+                                         out, n, L, lt);
+    else if (scenes > 1)
+        grid_encode_fwd_kernel<C, float, true><<<blocks, kThreads, 0, s>>>(
+            x, (const float*)table, out, n, L, lt);
     else
-        grid_encode_fwd_kernel<C, float><<<blocks, kThreads, 0, s>>>(
+        grid_encode_fwd_kernel<C, float, false><<<blocks, kThreads, 0, s>>>(
             x, (const float*)table, out, n, L, lt);
 }
 
 template <int C>
 static void launch_bwd(const float* x, const float* g, int bf16, float* gt,
-                       long long n, int L, const LevelTable& lt,
+                       long long n, int scenes, int L, const LevelTable& lt,
                        cudaStream_t s) {
     // points per block: 256, halved until the staged grad_out tile fits
     // the 48 KB of shared memory a block gets without opting in
@@ -435,22 +464,30 @@ static void launch_bwd(const float* x, const float* g, int bf16, float* gt,
     while (tile > 32 && (size_t)tile * (L * C + 1) * sizeof(float) > 48 * 1024)
         tile /= 2;
     const size_t smem = (size_t)tile * (L * C + 1) * sizeof(float);
-    unsigned blocks = (unsigned)((n + tile - 1) / tile);
-    if (bf16)
-        grid_encode_bwd_kernel<C, true><<<blocks, tile, smem, s>>>(
+    const dim3 blocks((unsigned)((n + tile - 1) / tile), scenes);
+    if (bf16 && scenes > 1)
+        grid_encode_bwd_kernel<C, true, true><<<blocks, tile, smem, s>>>(
+            x, g, gt, n, L, lt);
+    else if (bf16)
+        grid_encode_bwd_kernel<C, true, false><<<blocks, tile, smem, s>>>(
+            x, g, gt, n, L, lt);
+    else if (scenes > 1)
+        grid_encode_bwd_kernel<C, false, true><<<blocks, tile, smem, s>>>(
             x, g, gt, n, L, lt);
     else
-        grid_encode_bwd_kernel<C, false><<<blocks, tile, smem, s>>>(
+        grid_encode_bwd_kernel<C, false, false><<<blocks, tile, smem, s>>>(
             x, g, gt, n, L, lt);
 }
 
 // Host pointers: offsets (L+1) int64, scales (L) f32, strides (L, 3)
-// uint32, use_hash (L) int32.  Device pointers: x (N, 3) f32, table
-// (T, C) f32 or bf16, its data aligned to min(C * element size, 16)
-// bytes, out (N, L*C) f32.  Returns cudaGetLastError().
+// uint32, use_hash (L) int32.  Device pointers, for S = n_scenes scenes
+// of n_points each: x (S, N, 3) f32, table (S, T, C) f32 or bf16, its
+// data aligned to min(C * element size, 16) bytes, out (S, N, L*C) f32.
+// Returns cudaGetLastError().
 extern "C" int sf_grid_encode_fwd(const void* x, const void* table,
                                   int table_bf16, void* out,
-                                  long long n_points, int L, int C,
+                                  long long n_points, int n_scenes, int L,
+                                  int C,
                                   const void* offsets, const void* scales,
                                   const void* strides, const void* use_hash,
                                   void* stream) {
@@ -459,24 +496,28 @@ extern "C" int sf_grid_encode_fwd(const void* x, const void* table,
                           (const float*)scales, (const uint32_t*)strides,
                           (const int*)use_hash, &lt, nullptr);
     if (err) return err;
+    if (n_scenes < 1 || n_scenes > 65535) return (int)cudaErrorInvalidValue;
     if (n_points == 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
     const float* xf = (const float*)x;
     float* o = (float*)out;
+    const int S = n_scenes;
     switch (C) {
-        case 1: launch_fwd<1>(xf, table, table_bf16, o, n_points, L, lt, s); break;
-        case 2: launch_fwd<2>(xf, table, table_bf16, o, n_points, L, lt, s); break;
-        case 4: launch_fwd<4>(xf, table, table_bf16, o, n_points, L, lt, s); break;
-        case 8: launch_fwd<8>(xf, table, table_bf16, o, n_points, L, lt, s); break;
+        case 1: launch_fwd<1>(xf, table, table_bf16, o, n_points, S, L, lt, s); break;
+        case 2: launch_fwd<2>(xf, table, table_bf16, o, n_points, S, L, lt, s); break;
+        case 4: launch_fwd<4>(xf, table, table_bf16, o, n_points, S, L, lt, s); break;
+        case 8: launch_fwd<8>(xf, table, table_bf16, o, n_points, S, L, lt, s); break;
         default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();
 }
 
-// grad_out (N, L*C) f32; grad_table (T, C) f32, zeroed by the caller.
+// grad_out (S, N, L*C) f32; grad_table (S, T, C) f32, zeroed by the
+// caller.
 extern "C" int sf_grid_encode_bwd(const void* x, const void* grad_out,
                                   int table_bf16, void* grad_table,
-                                  long long n_points, int L, int C,
+                                  long long n_points, int n_scenes, int L,
+                                  int C,
                                   const void* offsets, const void* scales,
                                   const void* strides, const void* use_hash,
                                   void* stream) {
@@ -485,16 +526,18 @@ extern "C" int sf_grid_encode_bwd(const void* x, const void* grad_out,
                           (const float*)scales, (const uint32_t*)strides,
                           (const int*)use_hash, &lt, nullptr);
     if (err) return err;
+    if (n_scenes < 1 || n_scenes > 65535) return (int)cudaErrorInvalidValue;
     if (n_points == 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
     const float* xf = (const float*)x;
     const float* g = (const float*)grad_out;
     float* gt = (float*)grad_table;
+    const int S = n_scenes;
     switch (C) {
-        case 1: launch_bwd<1>(xf, g, table_bf16, gt, n_points, L, lt, s); break;
-        case 2: launch_bwd<2>(xf, g, table_bf16, gt, n_points, L, lt, s); break;
-        case 4: launch_bwd<4>(xf, g, table_bf16, gt, n_points, L, lt, s); break;
-        case 8: launch_bwd<8>(xf, g, table_bf16, gt, n_points, L, lt, s); break;
+        case 1: launch_bwd<1>(xf, g, table_bf16, gt, n_points, S, L, lt, s); break;
+        case 2: launch_bwd<2>(xf, g, table_bf16, gt, n_points, S, L, lt, s); break;
+        case 4: launch_bwd<4>(xf, g, table_bf16, gt, n_points, S, L, lt, s); break;
+        case 8: launch_bwd<8>(xf, g, table_bf16, gt, n_points, S, L, lt, s); break;
         default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();

@@ -30,9 +30,14 @@ a detached copy to the VAE; the JAX package renders twice with one key,
 which gives the same image, loss and gradients.  ``sampler_bf16`` runs
 the sampler's UNet in bf16 on a bf16 copy of its weights
 (``models.py::SparseFusionModels.unet_half``); the sampler's own
-arithmetic, the VAE and the EFT stay f32, as in the JAX package.  LPIPS
-is not ported yet and raises ``NotImplementedError`` naming its ROADMAP
-item.  Options that only shaped the JAX package's dispatch
+arithmetic, the VAE and the EFT stay f32, as in the JAX package.  With an
+``lpips_fn`` (``nn/lpips.py::build_lpips_fn``) and ``lambda_percep > 0``
+the fusion loss adds ``lambda_percep`` times the LPIPS distance of the
+render to its target, its gradient through the render, and the fusion
+step renders the full grid (``fusion_rays`` is then not used, as in the
+JAX package); Phase C adds an ``lpips`` column.  The steps also run S
+scenes at once on an ``NGPFieldStack`` (``distill/batched.py``).
+Options that only shaped the JAX package's dispatch
 (``fused_steps``, ``plms_host_loop``, ``plms_scan_tail``,
 ``loss_fetch_every``) are accepted and ignored: the port runs eagerly
 and reads the losses every iteration.
@@ -63,6 +68,7 @@ from sparsefusion_tpu_torch.diffusion.plms import plms_sample
 from sparsefusion_tpu_torch.nn.ngp import (
     NGPConfig,
     NGPField,
+    NGPFieldStack,
     export_jax_params,
 )
 from sparsefusion_tpu_torch.ops.image import resize_bilinear, resize_nearest
@@ -79,7 +85,6 @@ from sparsefusion_tpu_torch.render.volume import (
 from sparsefusion_tpu_torch.utils.image import huber, to_uint8
 from sparsefusion_tpu_torch.utils.metrics import psnr, ssim
 
-NOT_PORTED_LPIPS = "LPIPS is not ported yet: ROADMAP.md section 1, item 10"
 # the occupancy grid's cells a side (OccupancyGrid's default, which the
 # JAX loop uses)
 OCC_GRID_SIZE = 128
@@ -200,6 +205,11 @@ def make_ngp_optimizer(cfg: DistillConfig, field: NGPField) -> NGPOptimizer:
     return NGPOptimizer(field, cfg)
 
 
+def _scene_axis(field) -> tuple:
+    """(S,) for an :class:`NGPFieldStack` of S scenes, () for a field."""
+    return (field.n_scenes,) if isinstance(field, NGPFieldStack) else ()
+
+
 def _render_cam(field: NGPField, cam: Cameras, hw: int,
                 vcfg: VolumeRendererConfig, perturb: bool,
                 generator: Optional[torch.Generator] = None,
@@ -208,36 +218,44 @@ def _render_cam(field: NGPField, cam: Cameras, hw: int,
                 u: Optional[torch.Tensor] = None, near_far_fn=None):
     """Render a camera; with ``ray_idx`` (K,) only those grid rays.
     ``jitter`` / ``u`` are the renderer's draws for the rays rendered;
-    ``near_far_fn`` tightens each ray's [near, far]."""
+    ``near_far_fn`` tightens each ray's [near, far].  An
+    :class:`NGPFieldStack` renders S cameras, one a scene, in one pass:
+    everything gains a leading S axis (``ray_idx`` (S, K))."""
+    lead = _scene_axis(field)
     bundle = grid_ray_bundle(cam, hw, hw, 2, 1.0, 2.0)
-    o = bundle.origins.reshape(-1, 3)
-    d = bundle.directions.reshape(-1, 3)
-    if ray_idx is not None:
-        o = o[ray_idx]
-        d = d[ray_idx]
+    o = _at_rays(bundle.origins.reshape(*lead, -1, 3), ray_idx)
+    d = _at_rays(bundle.directions.reshape(*lead, -1, 3), ray_idx)
     bg_fn = field.background if field.config.bg_radius > 0 else None
     out = render_rays_chunked(field, o, d, vcfg, perturb=perturb,
                               det_importance=False, bg_color=0.0,
                               remat=remat, bg_fn=bg_fn, generator=generator,
                               jitter=jitter, u=u, near_far_fn=near_far_fn)
     if ray_idx is not None:
-        return out["image"], out["weights_sum"][:, None]
-    return out["image"].reshape(hw, hw, 3), out["weights_sum"].reshape(
-        hw, hw, 1)
+        return out["image"], out["weights_sum"][..., None]
+    return (out["image"].reshape(*lead, hw, hw, 3),
+            out["weights_sum"].reshape(*lead, hw, hw, 1))
 
 
 def _at_rays(img_hw: torch.Tensor, ray_idx: Optional[torch.Tensor]):
+    """The rows ``ray_idx`` (K,) of an image's pixels, (K, C); with a
+    scene axis, (S, K) of (S, H, W, C) -> (S, K, C)."""
     if ray_idx is None:
         return img_hw
-    return img_hw.reshape(-1, img_hw.shape[-1])[ray_idx]
-
-
-def _opacity(sil: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(sil ** 2 + 0.01).mean()
+    flat = img_hw.reshape(*ray_idx.shape[:-1], -1, img_hw.shape[-1])
+    return torch.gather(flat, -2, ray_idx.long()[..., None].expand(
+        *ray_idx.shape, flat.shape[-1]))
 
 
 class SceneSteps:
     """The per-scene step functions of the loop.
+
+    ``field`` is one scene's :class:`NGPField`, or the
+    :class:`NGPFieldStack` of S scenes the batched loop optimises in
+    lockstep.  With a stack every step takes S cameras (one a scene),
+    targets, features and draws with a leading S axis, and one
+    ``max_thres`` for all S; each loss is then (S,), every scene's own,
+    and the optimizer steps on their sum, which gives each scene its own
+    gradient, as ``jax.vmap`` does (a mean would scale them by 1 / S).
 
     ``draws`` is an optional dict with the random numbers a step would
     otherwise take from its generator: ``ray_idx`` (input_rays,) when the
@@ -250,22 +268,48 @@ class SceneSteps:
     grid's (``render/occupancy.py``); with ``cfg.use_occupancy`` every
     render tightens its rays' [near, far] to the occupied span.
     ``models`` (the EFT/VAE/UNet bundle) is needed by the fusion step
-    only.
+    only.  ``lpips_fn`` ((B, H, W, 3) images in [0, 1], twice -> (B,)),
+    with ``cfg.lambda_percep > 0``, adds the perceptual term to the
+    fusion loss and turns the subsampled fusion step off, as in the JAX
+    package.
     """
 
     def __init__(self, field: NGPField, cfg: DistillConfig,
                  optimizer: NGPOptimizer, render_hw: int, image_size: int,
-                 models=None):
+                 models=None, lpips_fn=None):
         self.field = field
         self.cfg = cfg
         self.optimizer = optimizer
         self.render_hw = render_hw
         self.image_size = image_size
         self.models = models
+        self.lpips_fn = lpips_fn
+        self.scene_axis = _scene_axis(field)
         self.occ_cascade = cascade_count(cfg.bound)
-        # the perceptual term (LPIPS) is not ported, so it is never active
+        self.use_percep = lpips_fn is not None and cfg.lambda_percep > 0
         self.subsample_fusion = bool(cfg.fusion_rays) \
+            and not self.use_percep \
             and cfg.fusion_rays < render_hw * render_hw
+
+    def _mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over all but the scene axis: a scalar, or (S,)."""
+        if not self.scene_axis:
+            return x.mean()
+        return x.reshape(*self.scene_axis, -1).mean(-1)
+
+    def _opacity(self, sil: torch.Tensor) -> torch.Tensor:
+        return self._mean(torch.sqrt(sil ** 2 + 0.01))
+
+    def _batch(self, img: torch.Tensor) -> torch.Tensor:
+        """An image (H, W, C) as a batch of one; S scenes' (S, H, W, C)
+        as they are."""
+        return img if self.scene_axis else img[None]
+
+    def _unbatch(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.scene_axis else x[0]
+
+    def _resize(self, resize, img: torch.Tensor, size) -> torch.Tensor:
+        return self._unbatch(resize(self._batch(img), size))
 
     def make_nff(self, bitfield: Optional[torch.Tensor]):
         """The renderer's near/far hook for ``bitfield``, or None."""
@@ -282,7 +326,8 @@ class SceneSteps:
             return None
         if key in draws:
             return draws[key].to(self.field.grid.device)
-        return torch.randint(0, hw * hw, (n_rays,), generator=generator,
+        return torch.randint(0, hw * hw, (*self.scene_axis, n_rays),
+                             generator=generator,
                              device=self.field.grid.device)
 
     def input_losses(self, vc: VolumeRendererConfig, cam: Cameras,
@@ -294,15 +339,15 @@ class SceneSteps:
         draws = draws or {}
         ray_idx = self._ray_subset(generator, draws, cfg.input_rays)
         img, sil = self._render(vc, cam, generator, draws, ray_idx, bitfield)
-        gt_rgb_ds = resize_nearest(gt_rgb[None], (hw, hw))[0]
-        loss = cfg.lambda_color * huber(
-            img, _at_rays(gt_rgb_ds, ray_idx)).abs().mean()
+        gt_rgb_ds = self._resize(resize_nearest, gt_rgb, (hw, hw))
+        loss = cfg.lambda_color * self._mean(huber(
+            img, _at_rays(gt_rgb_ds, ray_idx)).abs())
         if gt_mask is not None:
-            gt_mask_ds = resize_nearest(gt_mask[None], (hw, hw))[0]
-            loss = loss + cfg.lambda_sil * huber(
-                sil, _at_rays(gt_mask_ds, ray_idx)).abs().mean()
+            gt_mask_ds = self._resize(resize_nearest, gt_mask, (hw, hw))
+            loss = loss + cfg.lambda_sil * self._mean(huber(
+                sil, _at_rays(gt_mask_ds, ray_idx)).abs())
         if cfg.lambda_opacity > 0:
-            loss = loss + cfg.lambda_opacity * _opacity(sil)
+            loss = loss + cfg.lambda_opacity * self._opacity(sil)
         return loss
 
     def _render(self, vc, cam, generator, draws, ray_idx=None, bitfield=None):
@@ -314,10 +359,11 @@ class SceneSteps:
 
     def _update(self, losses_fn, *args, **kwargs) -> torch.Tensor:
         """Loss, gradient and Adam update, in place on the field's
-        parameters.  Returns the (detached) loss."""
+        parameters (the gradient of the sum of S scenes' losses).
+        Returns the (detached) loss."""
         self.optimizer.zero_grad()
         loss = losses_fn(*args, **kwargs)
-        loss.backward()
+        loss.sum().backward()
         self.optimizer.step()
         return loss.detach()
 
@@ -335,8 +381,8 @@ class SceneSteps:
         img, sil = self._render(vc, cam, generator, draws or {},
                                 bitfield=bitfield)
         size = (self.image_size, self.image_size)
-        return (resize_bilinear(img[None], size)[0],
-                resize_bilinear(sil[None], size)[0])
+        return (self._resize(resize_bilinear, img, size),
+                self._resize(resize_bilinear, sil, size))
 
     def bootstrap_losses(self, vc, cam, eft_img, generator=None, draws=None,
                          bitfield=None):
@@ -349,15 +395,15 @@ class SceneSteps:
             ray_idx = self._ray_subset(generator, draws, cfg.input_rays)
             img, sil = self._render(vc, cam, generator, draws, ray_idx,
                                     bitfield)
-            eft_ds = resize_bilinear(eft_img[None], (hw, hw))[0]
+            eft_ds = self._resize(resize_bilinear, eft_img, (hw, hw))
             target = _at_rays(eft_ds, ray_idx)
         else:
             img, sil = self.render_up(vc, cam, generator, draws, bitfield)
             target = eft_img
         noisy_mask = (target.mean(dim=-1, keepdim=True) > 0.1).float()
-        return (cfg.lambda_color * huber(img, target).abs().mean()
-                + cfg.lambda_sil * huber(sil, noisy_mask).abs().mean()
-                + cfg.lambda_opacity * _opacity(sil))
+        return (cfg.lambda_color * self._mean(huber(img, target).abs())
+                + cfg.lambda_sil * self._mean(huber(sil, noisy_mask).abs())
+                + cfg.lambda_opacity * self._opacity(sil))
 
     def bootstrap_step(self, vc, cam, eft_img, generator=None, draws=None,
                        bitfield=None):
@@ -370,17 +416,20 @@ class SceneSteps:
         """The diffusion target of a render (H, W, 3): VAE encode,
         partial-noise PLMS conditioned on ``features`` (256, h, w), VAE
         decode.  Returns (target image (H, W, 3), fusion weight =
-        1 - alpha_cumprod at max_thres)."""
+        1 - alpha_cumprod at max_thres).  S scenes' renders and features
+        go through one encode, one PLMS chain at batch S (one step count:
+        ``max_thres`` is shared) and one decode; the weight is then (S,)."""
         models, cfg = self.models, self.cfg
-        latents = models.vae_encode(img[None])
+        latents = models.vae_encode(self._batch(img))
         pred_x0, _, _, alpha_cumprod = plms_sample(
             models.ddpm, functools.partial(models.denoise_fn,
                                            bf16=cfg.sampler_bf16),
             latents, max_thres,
-            cond_images=features[None], cond_scale=cfg.cond_scale,
+            cond_images=self._batch(features), cond_scale=cfg.cond_scale,
             plms_steps=cfg.plms_steps, generator=generator,
             noises=plms_noise)
-        return models.vae_decode(pred_x0)[0], 1.0 - alpha_cumprod[0]
+        return (self._unbatch(models.vae_decode(pred_x0)),
+                self._unbatch(1.0 - alpha_cumprod))
 
     def fusion_losses(self, vc, cam, features, max_thres, generator=None,
                       draws=None, bitfield=None):
@@ -388,7 +437,9 @@ class SceneSteps:
         with gradient and feed the detached copy to :meth:`fusion_target`
         (the reference samples without gradient).  With it: the full
         render without gradient feeds the sampler, and
-        :meth:`fusion_subset_losses` takes the gradient on a ray subset."""
+        :meth:`fusion_subset_losses` takes the gradient on a ray subset.
+        With the perceptual term, ``lambda_percep`` times the LPIPS
+        distance of the render to the target joins the loss."""
         draws = draws or {}
         if self.subsample_fusion:
             with torch.no_grad():
@@ -401,8 +452,11 @@ class SceneSteps:
         pred_img, weight = self.fusion_target(
             img.detach(), features, max_thres, generator,
             draws.get("plms_noise"))
-        return (weight * (img - pred_img).abs().mean()
-                + self.cfg.lambda_opacity * _opacity(sil))
+        loss = weight * self._mean((img - pred_img).abs())
+        if self.use_percep:
+            loss = loss + self.cfg.lambda_percep * self._mean(self.lpips_fn(
+                self._batch(img), self._batch(pred_img)))
+        return loss + self.cfg.lambda_opacity * self._opacity(sil)
 
     def fusion_subset_losses(self, vc, cam, pred_img, weight, generator=None,
                              draws=None, bitfield=None):
@@ -419,9 +473,9 @@ class SceneSteps:
                                 {"jitter": draws.get("fusion_jitter"),
                                  "u": draws.get("fusion_u")},
                                 ray_idx, bitfield)
-        pred_ds = resize_bilinear(pred_img[None], (hw, hw))[0]
-        return (weight * (img - _at_rays(pred_ds, ray_idx)).abs().mean()
-                + cfg.lambda_opacity * _opacity(sil))
+        pred_ds = self._resize(resize_bilinear, pred_img, (hw, hw))
+        return (weight * self._mean((img - _at_rays(pred_ds, ray_idx)).abs())
+                + cfg.lambda_opacity * self._opacity(sil))
 
     def fusion_step(self, vc, cam, features, max_thres, generator=None,
                     draws=None, bitfield=None):
@@ -433,10 +487,10 @@ def make_scene_step_fns(field: NGPField, cfg: DistillConfig,
                         optimizer: NGPOptimizer, render_hw: int,
                         image_size: int, lpips_fn=None,
                         models=None) -> SceneSteps:
-    """The per-scene steps (input, bootstrap and, with ``models``, fusion)."""
-    if lpips_fn is not None:
-        raise NotImplementedError(NOT_PORTED_LPIPS)
-    return SceneSteps(field, cfg, optimizer, render_hw, image_size, models)
+    """The per-scene steps (input, bootstrap and, with ``models``, fusion;
+    with ``lpips_fn``, the fusion loss's perceptual term)."""
+    return SceneSteps(field, cfg, optimizer, render_hw, image_size, models,
+                      lpips_fn)
 
 
 def render_schedule(cfg: DistillConfig, vcfg: VolumeRendererConfig):
@@ -534,9 +588,9 @@ def distillation_loop(
     the per-iteration host clock, the iterations by render mode, the
     subsampled fusion steps and, with ``cfg.use_occupancy``, the occupancy
     grid's updates.  ``models`` (the bundle of
-    ``models.build_models``) is needed with ``use_diffusion`` only."""
-    if lpips_fn is not None:
-        raise NotImplementedError(NOT_PORTED_LPIPS)
+    ``models.build_models``) is needed with ``use_diffusion`` only;
+    ``lpips_fn`` adds the fusion loss's perceptual term and the Phase C
+    ``lpips`` column."""
     if use_diffusion and models is None:
         raise ValueError("the diffusion arm needs the EFT/VAE/UNet models")
     device = generator.device
@@ -576,7 +630,7 @@ def distillation_loop(
     field = NGPField(cfg.ngp, device=device, generator=generator)
     optimizer = make_ngp_optimizer(cfg, field)
     steps = make_scene_step_fns(field, cfg, optimizer, render_hw, image_size,
-                                models=models)
+                                lpips_fn=lpips_fn, models=models)
     unet_evals0 = models.unet_evals if models is not None else 0
 
     occ_grid, bitfield = None, None
@@ -644,33 +698,10 @@ def distillation_loop(
 
     # ---- Phase C: eval ------------------------------------------------
     # in the render mode of the last iteration, inside the occupied span
-    vcfg_eval = active_vcfg(cfg.max_itr)
-    nff = steps.make_nff(bitfield)
-    renders, sils = _render_views(field, scene_vox, image_size, vcfg_eval,
-                                  generator, nff)
-    metrics = {"psnr": [], "ssim": []}
-    for ci in range(len(scene_vox)):
-        metrics["psnr"].append(psnr(renders[ci], scene.images[ci]))
-        metrics["ssim"].append(ssim(renders[ci], scene.images[ci]))
-    summary = {k: float(np.mean(v)) for k, v in metrics.items()}
-    if verbose:
-        print("warning: this metric is used for debugging only and not the "
-              "final metric")
-        print(f"scene {scene.sequence_name} psnr: {summary['psnr']:.2f} "
-              f"ssim: {summary['ssim']:.3f}")
-
-    circle_cams = get_interpolated_path(scene_vox, n=cfg.n_aug_cameras)
-    c_imgs, c_sils = _render_views(field, circle_cams, image_size,
-                                   vcfg_eval, generator, nff)
-    circle_renders = [np.hstack([c_imgs[i], np.repeat(c_sils[i], 3, -1)])
-                      for i in range(len(circle_cams))]
-
-    result = {
-        "ngp_params": export_jax_params(field),
-        "renders": renders,
-        "silhouettes": sils,
-        "circle_renders": np.stack(circle_renders),
-        "metrics": summary,
+    result = evaluate_scene(field, scene, scene_vox, cfg,
+                            active_vcfg(cfg.max_itr), generator,
+                            steps.make_nff(bitfield), lpips_fn, verbose)
+    result.update({
         "losses": losses,
         "fusion_losses": fusion_losses,
         # seconds of Phase A, and the UNet evaluations of this scene
@@ -688,10 +719,51 @@ def distillation_loop(
         # the fusion steps that took their gradient on a ray subset
         "render_modes": render_modes,
         "fusion_subset_steps": fusion_subset_steps,
-    }
+    })
     if save_dir is not None:
         _save_outputs(result, scene, feature_cache, save_dir, verbose)
     return result
+
+
+def evaluate_scene(field: NGPField, scene: SceneData, scene_vox: Cameras,
+                   cfg: DistillConfig, vcfg_eval: VolumeRendererConfig,
+                   generator: torch.Generator, near_far_fn=None,
+                   lpips_fn=None, verbose: bool = True) -> Dict[str, Any]:
+    """Phase C of one scene: full-resolution renders of every scene camera
+    against its image (PSNR, SSIM and, with ``lpips_fn``, LPIPS in one
+    batched call over all views), and an orbit of ``n_aug_cameras``
+    renders.  Returns the result entries ``ngp_params``, ``renders``,
+    ``silhouettes``, ``circle_renders`` and ``metrics``."""
+    image_size = scene.images.shape[1]
+    renders, sils = _render_views(field, scene_vox, image_size, vcfg_eval,
+                                  generator, near_far_fn)
+    metrics = {"psnr": [], "ssim": []}
+    if lpips_fn is not None:
+        dev = field.grid.device
+        with torch.no_grad():
+            metrics["lpips"] = lpips_fn(
+                torch.as_tensor(renders, device=dev),
+                torch.as_tensor(scene.images, device=dev)).tolist()
+    for ci in range(len(scene_vox)):
+        metrics["psnr"].append(psnr(renders[ci], scene.images[ci]))
+        metrics["ssim"].append(ssim(renders[ci], scene.images[ci]))
+    summary = {k: float(np.mean(v)) for k, v in metrics.items()}
+    if verbose:
+        print("warning: this metric is used for debugging only and not the "
+              "final metric")
+        extra = (f" lpips: {summary['lpips']:.3f}"
+                 if "lpips" in summary else "")
+        print(f"scene {scene.sequence_name} psnr: {summary['psnr']:.2f} "
+              f"ssim: {summary['ssim']:.3f}{extra}")
+
+    circle_cams = get_interpolated_path(scene_vox, n=cfg.n_aug_cameras)
+    c_imgs, c_sils = _render_views(field, circle_cams, image_size,
+                                   vcfg_eval, generator, near_far_fn)
+    circle_renders = [np.hstack([c_imgs[i], np.repeat(c_sils[i], 3, -1)])
+                      for i in range(len(circle_cams))]
+    return {"ngp_params": export_jax_params(field), "renders": renders,
+            "silhouettes": sils, "circle_renders": np.stack(circle_renders),
+            "metrics": summary}
 
 
 def _occupied_share(bitfield: torch.Tensor) -> float:

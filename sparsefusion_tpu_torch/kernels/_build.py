@@ -158,7 +158,7 @@ def load_library() -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name in ("sf_grid_encode_fwd", "sf_grid_encode_bwd"):
         fn = getattr(lib, name)
-        fn.argtypes = [vp, vp, i32, vp, i64, i32, i32, vp, vp, vp, vp, vp]
+        fn.argtypes = [vp, vp, i32, vp, i64, i32, i32, i32, vp, vp, vp, vp, vp]
         fn.restype = i32
     lib.sf_imagen_attention_fwd.argtypes = [vp] * 4 + [i32] * 4 + [vp]
     lib.sf_imagen_attention_fwd.restype = i32

@@ -6,9 +6,14 @@ and its scatter-add adjoint: one kernel computes the whole encoding of
 gradient with f32 atomics.  The plain version of both is
 ``ops/grid_encode.py::grid_encode_plain`` (autograd gives its gradient).
 
+Both take a leading scene axis: points (S, N, 3) with S tables (S, T, C)
+of one encoding, every scene's encodings (S, N, L*C) or table gradient
+(S, T, C) in one launch (the port of ``jax.vmap`` over the encode).
 Each wrapper checks its tensors, allocates its output, launches on the
-current stream and counts its launches in ``<wrapper>.launches`` (the
-forward's on a bf16 table also in ``grid_encode_cuda.launches_bf16``).
+current stream and counts its launches in ``<wrapper>.launches`` (a
+scene-batched launch once) and the scenes they encoded in
+``<wrapper>.scenes`` (S a launch); the forward's launches on a bf16
+table also in ``grid_encode_cuda.launches_bf16``.
 :func:`level_plan` mirrors, in Python, how the kernels reduce each
 level's index to the level's size.
 """
@@ -99,24 +104,43 @@ def _ptr(a: np.ndarray) -> ctypes.c_void_p:
     return ctypes.c_void_p(a.ctypes.data)
 
 
+# the kernels' grid.y: one row of blocks per scene
+MAX_SCENES = 65535
+
+
+def _scenes(x01: torch.Tensor) -> int:
+    """S of (S, N, 3) points, 1 of (N, 3) ones."""
+    return x01.shape[0] if x01.ndim == 3 else 1
+
+
 def _check_points(x01: torch.Tensor) -> None:
     if not x01.is_cuda:
         raise ValueError("grid_encode_cuda takes CUDA tensors")
-    if x01.dtype != torch.float32 or x01.ndim != 2 or x01.shape[1] != 3:
-        raise ValueError(f"x01 must be (N, 3) float32, got "
+    if x01.dtype != torch.float32 or x01.ndim not in (2, 3) \
+            or x01.shape[-1] != 3:
+        raise ValueError(f"x01 must be (N, 3) or (S, N, 3) float32, got "
                          f"{tuple(x01.shape)} {x01.dtype}")
+    if not 1 <= _scenes(x01) <= MAX_SCENES:
+        raise ValueError(f"{_scenes(x01)} scenes outside [1, {MAX_SCENES}]")
     if not x01.is_contiguous():
         raise ValueError("x01 must be contiguous")
 
 
-def _check_table(table: torch.Tensor, enc: GridEncoding) -> None:
-    """A (T, C) f32 or bf16 contiguous table whose data is aligned to the
-    kernel's vector row loads: min(C * element size, 16) bytes."""
+def _table_shape(x01: torch.Tensor, enc: GridEncoding) -> tuple:
+    """(T, C) for (N, 3) points, (S, T, C) for (S, N, 3) ones."""
+    return tuple(x01.shape[:-2]) + (enc.total_params, enc.level_dim)
+
+
+def _check_table(table: torch.Tensor, enc: GridEncoding,
+                 shape: Optional[tuple] = None) -> None:
+    """A contiguous f32 or bf16 table of ``shape`` ((T, C) by default;
+    (S, T, C) for S scenes' points) whose data is aligned to the kernel's
+    vector row loads: min(C * element size, 16) bytes."""
+    shape = shape or (enc.total_params, enc.level_dim)
     if table.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"table dtype {table.dtype} not f32/bf16")
-    if table.shape != (enc.total_params, enc.level_dim):
-        raise ValueError(f"table shape {tuple(table.shape)} != "
-                         f"{(enc.total_params, enc.level_dim)}")
+    if tuple(table.shape) != shape:
+        raise ValueError(f"table shape {tuple(table.shape)} != {shape}")
     if not table.is_contiguous():
         raise ValueError("table must be contiguous")
     align = min(enc.level_dim * table.element_size(), 16)
@@ -132,9 +156,10 @@ def _call(fn, x01, src, bf16, dst, enc):
     with torch.cuda.device(x01.device):
         err = fn(ctypes.c_void_p(x01.data_ptr()),
                  ctypes.c_void_p(src.data_ptr()), int(bf16),
-                 ctypes.c_void_p(dst.data_ptr()), x01.shape[0],
-                 enc.num_levels, enc.level_dim, _ptr(offsets), _ptr(scales),
-                 _ptr(strides), _ptr(use_hash), ctypes.c_void_p(stream))
+                 ctypes.c_void_p(dst.data_ptr()), x01.shape[-2],
+                 _scenes(x01), enc.num_levels, enc.level_dim, _ptr(offsets),
+                 _ptr(scales), _ptr(strides), _ptr(use_hash),
+                 ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"grid encode kernel launch failed: CUDA error "
                            f"{err}")
@@ -143,23 +168,26 @@ def _call(fn, x01, src, bf16, dst, enc):
 def grid_encode_cuda(x01: torch.Tensor, table: torch.Tensor,
                      enc: GridEncoding) -> torch.Tensor:
     """Forward kernel: (N, 3) f32 points in [0, 1], (T, C) f32 or bf16
-    table -> (N, L*C) f32 encodings (zero outside the unit box)."""
+    table -> (N, L*C) f32 encodings (zero outside the unit box); or
+    (S, N, 3) points and (S, T, C) tables -> (S, N, L*C), one launch."""
     from sparsefusion_tpu_torch.kernels._build import load_library
 
     _check_points(x01)
     if table.device != x01.device:
         raise ValueError("table and points must be on one device")
-    _check_table(table, enc)
-    out = torch.empty((x01.shape[0], enc.output_dim), dtype=torch.float32,
-                      device=x01.device)
+    _check_table(table, enc, _table_shape(x01, enc))
+    out = torch.empty(x01.shape[:-1] + (enc.output_dim,),
+                      dtype=torch.float32, device=x01.device)
     _call(load_library().sf_grid_encode_fwd, x01, table,
           table.dtype == torch.bfloat16, out, enc)
     grid_encode_cuda.launches += 1
+    grid_encode_cuda.scenes += _scenes(x01)
     grid_encode_cuda.launches_bf16 += table.dtype == torch.bfloat16
     return out
 
 
 grid_encode_cuda.launches = 0
+grid_encode_cuda.scenes = 0
 grid_encode_cuda.launches_bf16 = 0
 
 
@@ -167,38 +195,44 @@ def grid_encode_cuda_backward(x01: torch.Tensor, grad_out: torch.Tensor,
                               enc: GridEncoding,
                               table_bf16: bool = False) -> torch.Tensor:
     """Backward kernel: the (T, C) f32 table gradient of
-    :func:`grid_encode_cuda` for output gradient ``grad_out`` (N, L*C).
+    :func:`grid_encode_cuda` for output gradient ``grad_out`` (N, L*C);
+    with a scene axis, (S, T, C) for (S, N, L*C), one launch.
     ``table_bf16`` rounds the weights as the bf16 forward did."""
     from sparsefusion_tpu_torch.kernels._build import load_library
 
     _check_points(x01)
-    if grad_out.shape != (x01.shape[0], enc.output_dim) \
+    if grad_out.shape != x01.shape[:-1] + (enc.output_dim,) \
             or grad_out.dtype != torch.float32 \
             or grad_out.device != x01.device:
-        raise ValueError(f"grad_out must be (N, {enc.output_dim}) float32 "
-                         f"on the points' device")
+        raise ValueError(f"grad_out must be {x01.shape[:-1]} x "
+                         f"{enc.output_dim} float32 on the points' device")
     grad_out = grad_out.contiguous()
-    grad_table = torch.zeros((enc.total_params, enc.level_dim),
-                             dtype=torch.float32, device=x01.device)
+    grad_table = torch.zeros(_table_shape(x01, enc), dtype=torch.float32,
+                             device=x01.device)
     _call(load_library().sf_grid_encode_bwd, x01, grad_out, table_bf16,
           grad_table, enc)
     grid_encode_cuda_backward.launches += 1
+    grid_encode_cuda_backward.scenes += _scenes(x01)
     return grad_table
 
 
 grid_encode_cuda_backward.launches = 0
+grid_encode_cuda_backward.scenes = 0
 
 
 def reset_launches() -> None:
     grid_encode_cuda.launches = 0
+    grid_encode_cuda.scenes = 0
     grid_encode_cuda.launches_bf16 = 0
     grid_encode_cuda_backward.launches = 0
+    grid_encode_cuda_backward.scenes = 0
 
 
 class GridEncodeFunction(torch.autograd.Function):
     """Kernel forward and kernel table-gradient backward.
 
-    Takes the f32 master table; with ``table_dtype="bfloat16"`` it reads
+    Takes the f32 master table (S masters (S, T, C) for (S, N, 3)
+    points); with ``table_dtype="bfloat16"`` it reads
     a bf16 copy it makes itself, so the gradient it returns stays f32.
     """
 
@@ -224,8 +258,9 @@ class GridEncodeFunction(torch.autograd.Function):
 def grid_encode_fn(x01: torch.Tensor, master: torch.Tensor,
                    enc: GridEncoding,
                    table_dtype: Optional[str] = None) -> torch.Tensor:
-    """Differentiable (in the table) kernel grid encode.  Positions take no
-    gradient: passing points that require one raises."""
+    """Differentiable (in the table) kernel grid encode of (N, 3) points
+    with a (T, C) master, or of (S, N, 3) points with (S, T, C) masters.
+    Positions take no gradient: passing points that require one raises."""
     if x01.requires_grad:
         raise ValueError("the CUDA grid encode gives no gradient to the "
                          "positions; detach them (the renderer does)")

@@ -6,6 +6,11 @@ Counterpart of ``sparsefusion_tpu/nn/ngp.py``: a tiled grid encoder
 trunc_exp(raw + center gaussian blob), sigmoid albedo.  Parameter names
 follow the Flax module (``grid``, ``sigma_net_{i}``, ``bg_net_{i}``), so
 :func:`load_jax_params` / :func:`export_jax_params` carry weights across.
+
+:class:`NGPFieldStack` holds S such fields stacked on a leading scene
+axis, the port of the JAX scene-batched loop's vmapped params
+(``distill/batched.py``): one grid-encode launch and one batched matmul a
+layer evaluate all S scenes.
 """
 from __future__ import annotations
 
@@ -218,3 +223,133 @@ def export_jax_params(field: NGPField) -> Dict:
         out[name] = {"kernel": layer.weight.detach().cpu().numpy().T.copy(),
                      "bias": layer.bias.detach().cpu().numpy()}
     return out
+
+
+def _split(points: int, most: int = 64) -> int:
+    """The largest power of two up to ``most`` that divides ``points``."""
+    k = 1
+    while k < most and points % (2 * k) == 0:
+        k *= 2
+    return k
+
+
+class _StackedDenseFn(torch.autograd.Function):
+    """``baddbmm`` whose kernel gradient is split along the points.  The
+    gradient h^T g of S scenes' (P, in) and (P, out) is S products with a
+    reduction over P, which the library runs on S output tiles: at S = 4
+    and P = 262,144 they took 75% of a scene-batched input step's device
+    time on an H100 (PERF.md section 5).  Cut into S k products over P / k
+    points each and summed over k, they spread over the card."""
+
+    @staticmethod
+    def forward(ctx, h, kernel, bias):
+        ctx.save_for_backward(h, kernel)
+        return torch.baddbmm(bias[:, None, :], h, kernel)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, kernel = ctx.saved_tensors
+        S, P, n_in = h.shape
+        k = _split(P)
+        grad_h = torch.bmm(g, kernel.transpose(1, 2)) \
+            if ctx.needs_input_grad[0] else None
+        grad_kernel = torch.bmm(
+            h.reshape(S * k, P // k, n_in).transpose(1, 2),
+            g.reshape(S * k, P // k, -1)).reshape(S, k, n_in, -1).sum(1)
+        return grad_h, grad_kernel, g.sum(1)
+
+
+class StackedDense(nn.Module):
+    """S dense layers in the Flax layout: ``kernel`` (S, in, out),
+    ``bias`` (S, out); (S, P, in) -> (S, P, out) in one batched matmul."""
+
+    def __init__(self, kernel: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        self.kernel = nn.Parameter(kernel)
+        self.bias = nn.Parameter(bias)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        return _StackedDenseFn.apply(h, self.kernel, self.bias)
+
+
+class NGPFieldStack(nn.Module):
+    """S fields of one config with their parameters stacked on a leading
+    scene axis: ``grid`` (S, T, C) and each dense layer a
+    :class:`StackedDense`.  Points are (S, ..., 3), scene s's through
+    field s."""
+
+    def __init__(self, fields):
+        super().__init__()
+        fields = list(fields)
+        cfg = fields[0].config
+        if any(f.config != cfg for f in fields):
+            raise ValueError("a field stack needs one NGPConfig")
+        self.config = cfg
+        self.enc = fields[0].enc
+        self.n_scenes = len(fields)
+        with torch.no_grad():
+            self.grid = nn.Parameter(torch.stack([f.grid for f in fields]))
+            for name in _dense_names(fields[0]):
+                layers = [getattr(f, name) for f in fields]
+                setattr(self, name, StackedDense(
+                    torch.stack([m.weight.T for m in layers]),
+                    torch.stack([m.bias for m in layers])))
+
+    @classmethod
+    def from_jax_params(cls, config: NGPConfig, stacked: Dict,
+                        device=None) -> "NGPFieldStack":
+        """The JAX scene-batched loop's params: every leaf with a leading
+        S axis (numpy)."""
+        n = len(stacked["grid"])
+        fields = []
+        for i in range(n):
+            field = NGPField(config, device=device)
+            load_jax_params(field, _leaf_at(stacked, i))
+            fields.append(field)
+        return cls(fields)
+
+    def field_at(self, i: int) -> NGPField:
+        """Scene ``i`` as an :class:`NGPField` (a copy)."""
+        field = NGPField(self.config, device=self.grid.device)
+        with torch.no_grad():
+            field.grid.copy_(self.grid[i])
+            for name in _dense_names(field):
+                layer, stacked = getattr(field, name), getattr(self, name)
+                layer.weight.copy_(stacked.kernel[i].T)
+                layer.bias.copy_(stacked.bias[i])
+        return field
+
+    def _mlp(self, h: torch.Tensor, prefix: str, n_layers: int):
+        for i in range(n_layers):
+            h = getattr(self, f"{prefix}_{i}")(h)
+            if i < n_layers - 1:
+                h = torch.relu(h)
+        return h
+
+    density_blob = NGPField.density_blob
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: (S, ..., 3) in [-bound, bound] -> (sigma (S, ...), albedo
+        (S, ..., 3))."""
+        cfg = self.config
+        h = grid_encode_bound(x, self.grid, self.enc, bound=cfg.bound,
+                              table_dtype=cfg.table_dtype)
+        h = self._mlp(h.reshape(self.n_scenes, -1, h.shape[-1]),
+                      "sigma_net", cfg.num_layers).reshape(*x.shape[:-1], 4)
+        sigma = trunc_exp(h[..., 0] + self.density_blob(x))
+        albedo = torch.sigmoid(h[..., 1:])
+        return sigma, albedo
+
+    def background(self, d: torch.Tensor) -> torch.Tensor:
+        """(S, ..., 3) view directions -> (S, ..., 3) background colors."""
+        cfg = self.config
+        if cfg.bg_radius <= 0:
+            raise ValueError("background net disabled (bg_radius=0)")
+        h = freq_encode(d.reshape(self.n_scenes, -1, 3), cfg.bg_freq_degree)
+        h = self._mlp(h, "bg_net", cfg.num_layers_bg)
+        return torch.sigmoid(h).reshape(d.shape)
+
+
+def _leaf_at(tree: Dict, i: int) -> Dict:
+    return {k: _leaf_at(v, i) if isinstance(v, dict) else np.asarray(v)[i]
+            for k, v in tree.items()}

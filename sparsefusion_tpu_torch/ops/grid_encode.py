@@ -14,6 +14,10 @@ Counterpart of ``sparsefusion_tpu/ops/grid_encode.py``, same semantics:
 :func:`grid_encode` dispatches on the device of its input: a CUDA tensor
 goes to the hand-written kernel (``kernels/grid_encode.py``), a CPU
 tensor to :func:`grid_encode_plain`, the plain PyTorch version below.
+Both take a leading scene axis, the port of ``jax.vmap`` over the encode
+in the JAX package's scene-batched loop (``distill/batched.py``): points
+(S, B, D) and tables (S, T, C) of one ``GridEncoding``, every scene read
+from its own table, in one call.
 
 With ``table_dtype="bfloat16"`` the table is read in bf16 and, as in the
 JAX blocked path (``ops/grid_encode_blocked.py:269``), the trilinear
@@ -194,19 +198,39 @@ def grid_encode_plain(x01: torch.Tensor, table: torch.Tensor,
     """Plain PyTorch grid encode; autograd gives the table gradient.
 
     Args:
-        x01: (B, D) points in [0, 1].
-        table: (total_params, C) f32 master table.
+        x01: (B, D) points in [0, 1]; with a scene axis (S, B, D).
+        table: (total_params, C) f32 master table; with a scene axis
+            (S, total_params, C), and scene s's points read table s.
         table_dtype: None (f32) or "bfloat16": the dtype the table is read in.
 
     Returns:
-        (B, L * C) f32 encodings, zero where inputs leave the unit box.
+        (B, L * C) f32 encodings, or (S, B, L * C), zero where inputs
+        leave the unit box.
     """
+    if table.ndim == 3:
+        S, T, C = table.shape
+        B = x01.shape[1]
+        # scene s's rows sit at s * T in the (S * T, C) table
+        first = torch.arange(S, device=x01.device).repeat_interleave(B) * T
+        out = _encode_plain(x01.reshape(S * B, -1), table.reshape(S * T, C),
+                            enc, table_dtype, first[:, None, None])
+        return out.reshape(S, B, -1)
+    return _encode_plain(x01, table, enc, table_dtype)
+
+
+def _encode_plain(x01: torch.Tensor, table: torch.Tensor, enc: GridEncoding,
+                  table_dtype: Optional[str],
+                  first_row: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`grid_encode_plain` of (B, D) points; ``first_row`` (B, 1, 1)
+    offsets each point's rows into ``table``."""
     B, D = x01.shape
     L, C = enc.num_levels, enc.level_dim
     x01 = x01.to(torch.float32)
     tbl = _round_table(table, table_dtype)
     index, frac = _corners(x01, enc)
     index = _rows(index, enc)                                  # (B, L, K)
+    if first_row is not None:
+        index = index + first_row
 
     # corner k = sum_d bit_d 2^d: combine the per-axis terms for bit 0/1
     # axis by axis, the new axis most significant.  The weight is
@@ -229,7 +253,8 @@ def grid_encode_plain(x01: torch.Tensor, table: torch.Tensor,
 
 def grid_encode(x01: torch.Tensor, table: torch.Tensor, enc: GridEncoding,
                 table_dtype: Optional[str] = None) -> torch.Tensor:
-    """Encode (B, D) points in [0, 1] with the f32 master ``table``.
+    """Encode (B, D) points in [0, 1] with the f32 master ``table``, or
+    (S, B, D) points of S scenes with their (S, T, C) tables in one call.
 
     A CUDA tensor always goes to the hand-written kernel; a CPU tensor to
     the plain version.  Positions take no gradient on the kernel path.
@@ -294,8 +319,10 @@ def ray_ordered_points(n_rays: int, n_samples: int,
 def grid_encode_bound(x: torch.Tensor, table: torch.Tensor,
                       enc: GridEncoding, bound: float = 1.0,
                       table_dtype: Optional[str] = None) -> torch.Tensor:
-    """Encode world points in [-bound, bound]."""
+    """Encode world points in [-bound, bound]: (..., D) with a (T, C)
+    table, or (S, ..., D) with S scenes' (S, T, C) tables."""
     prefix = x.shape[:-1]
-    x01 = (x.reshape(-1, enc.input_dim) + bound) / (2.0 * bound)
+    scenes = x.shape[:1] if table.ndim == 3 else ()
+    x01 = (x.reshape(*scenes, -1, enc.input_dim) + bound) / (2.0 * bound)
     out = grid_encode(x01, table, enc, table_dtype)
     return out.reshape(*prefix, enc.output_dim)

@@ -14,6 +14,11 @@ function that draws takes its draws as optional tensors and otherwise
 draws them from its ``torch.Generator``: ``jitter`` (N, num_steps or
 march_steps) uniforms for the stratified offsets and ``u`` (N,
 upsample_steps) uniforms for the inverse CDF.
+
+Rays may carry leading axes: (S, N, 3) rays of S scenes (the port of the
+JAX scene-batched loop's ``vmap`` over the renderer) go to the field as
+(S, P, 3) points, one field evaluation for all S scenes, with draws (S,
+N, ...); the chunked renderer cuts its chunks along N.
 """
 from __future__ import annotations
 
@@ -40,7 +45,8 @@ _MISS = 1e10
 
 def near_far_from_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor,
                        bound: float, min_near: float = 0.1):
-    """Slab intersection with the cube [-bound, bound]^3 -> (near, far) (N,)."""
+    """Slab intersection with the cube [-bound, bound]^3 -> (near, far),
+    each of the rays' leading shape."""
     inv_d = 1.0 / rays_d
     t0 = (-bound - rays_o) * inv_d
     t1 = (bound - rays_o) * inv_d
@@ -117,43 +123,47 @@ def render_rays(field_fn: Callable, rays_o: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 jitter: Optional[torch.Tensor] = None,
                 u: Optional[torch.Tensor] = None):
-    """Render a flat batch of rays.
+    """Render a flat batch of rays, or S scenes' batches.
 
     Args:
-        field_fn: (P, 3) -> (sigma (P,), albedo (P, 3)).
-        rays_o, rays_d: (N, 3) world rays.
-        jitter: (N, steps) stratified uniforms, used if ``perturb``.
+        field_fn: (P, 3) -> (sigma (P,), albedo (P, 3)); for S scenes
+            (S, P, 3) -> ((S, P), (S, P, 3)).
+        rays_o, rays_d: (N, 3) world rays, or (S, N, 3).
+        jitter: (N, steps) stratified uniforms, used if ``perturb``
+            ((S, N, steps) for S scenes, and so ``u``).
         u: (N, upsample_steps) importance uniforms, used if not
             ``det_importance``.
         generator: draws whichever of ``jitter`` / ``u`` is needed and
             not given.
 
     Returns:
-        dict(image (N,3), depth (N,), weights_sum (N,), mask (N,)).
+        dict(image (N,3), depth (N,), weights_sum (N,), mask (N,)), each
+        with the rays' leading scene axis.
     """
-    n = rays_o.shape[0]
+    n = rays_o.shape[:-1]                  # (N,) or (S, N)
     dev = rays_o.device
     nears, fars = near_far_from_aabb(rays_o, rays_d, cfg.bound, cfg.min_near)
     if near_far_fn is not None:
         nears, fars = near_far_fn(rays_o, rays_d, nears, fars)
-    nears_c = nears[:, None]
-    fars_c = fars[:, None]
+    nears_c = nears[..., None]
+    fars_c = fars[..., None]
 
     def pts(zv):
-        p = rays_o[:, None, :] + rays_d[:, None, :] * zv[..., None]
-        return torch.clamp(p, -cfg.bound, cfg.bound)
+        """The field's (P, 3) points, (S, P, 3) for S scenes."""
+        p = rays_o[..., None, :] + rays_d[..., None, :] * zv[..., None]
+        return torch.clamp(p, -cfg.bound, cfg.bound).reshape(*n[:-1], -1, 3)
 
     steps = cfg.march_steps if cfg.march_steps > 0 else cfg.num_steps
     sample_dist = (fars_c - nears_c) / steps
     z = torch.linspace(0.0, 1.0, steps, device=dev)
-    z_vals = nears_c + (fars_c - nears_c) * z[None, :]
+    z_vals = nears_c + (fars_c - nears_c) * z
     if perturb:
-        z_vals = z_vals + (_draw((n, steps), jitter, generator, dev) - 0.5) \
+        z_vals = z_vals + (_draw((*n, steps), jitter, generator, dev) - 0.5) \
             * sample_dist
 
-    sigma1, rgb1 = field_fn(pts(z_vals).reshape(-1, 3))
-    sigma1 = sigma1.reshape(n, steps)
-    rgb1 = rgb1.reshape(n, steps, 3)
+    sigma1, rgb1 = field_fn(pts(z_vals))
+    sigma1 = sigma1.reshape(*n, steps)
+    rgb1 = rgb1.reshape(*n, steps, 3)
 
     if cfg.march_steps == 0 and cfg.upsample_steps > 0:
         # importance sampling on the detached first-pass weights
@@ -161,13 +171,13 @@ def render_rays(field_fn: Callable, rays_o: torch.Tensor,
         deltas = z_vals[..., 1:] - z_vals[..., :-1]
         z_mid = z_vals[..., :-1] + 0.5 * deltas
         uu = None if det_importance else _draw(
-            (n, cfg.upsample_steps), u, generator, dev)
-        new_z = sample_pdf(z_mid, w_det[:, 1:-1], cfg.upsample_steps,
+            (*n, cfg.upsample_steps), u, generator, dev)
+        new_z = sample_pdf(z_mid, w_det[..., 1:-1], cfg.upsample_steps,
                            det=det_importance, u=uu).detach()
 
-        sigma2, rgb2 = field_fn(pts(new_z).reshape(-1, 3))
-        sigma2 = sigma2.reshape(n, cfg.upsample_steps)
-        rgb2 = rgb2.reshape(n, cfg.upsample_steps, 3)
+        sigma2, rgb2 = field_fn(pts(new_z))
+        sigma2 = sigma2.reshape(*n, cfg.upsample_steps)
+        rgb2 = rgb2.reshape(*n, cfg.upsample_steps, 3)
 
         z_all = torch.cat([z_vals, new_z], dim=-1)
         z_vals, order = torch.sort(z_all, dim=-1, stable=True)
@@ -177,7 +187,7 @@ def render_rays(field_fn: Callable, rays_o: torch.Tensor,
         weights, weights_sum = _composite(sigmas, z_vals, sample_dist)
         inv_order = torch.argsort(order, dim=-1)
         w_unsorted = torch.gather(weights, -1, inv_order)
-        rgbs = torch.cat([rgb1, rgb2], dim=1)
+        rgbs = torch.cat([rgb1, rgb2], dim=-2)
         image = (w_unsorted[..., None] * rgbs).sum(dim=-2)
     else:
         weights, weights_sum = _composite(sigma1, z_vals, sample_dist)
@@ -206,26 +216,28 @@ def render_rays_chunked(field_fn: Callable, rays_o: torch.Tensor,
                         generator: Optional[torch.Generator] = None,
                         jitter: Optional[torch.Tensor] = None,
                         u: Optional[torch.Tensor] = None):
-    """Render in ``max_ray_batch`` chunks.
+    """Render in ``max_ray_batch`` chunks (of each scene's rays, for (S,
+    N, 3) rays: a chunk is one field evaluation over all S scenes).
 
     All draws for all rays are made up front (or taken from ``jitter`` /
-    ``u``, each (N, ...)), so a chunk gets the same numbers whether it is
-    run once or, with ``remat=True``, recomputed by
+    ``u``, each (N, ...) or (S, N, ...)), so a chunk gets the same numbers
+    whether it is run once or, with ``remat=True``, recomputed by
     ``torch.utils.checkpoint`` in the backward pass, which then keeps one
     chunk's field-eval activations alive at a time instead of all.
     """
-    n = rays_o.shape[0]
+    lead = rays_o.shape[:-2]               # () or (S,)
+    n = rays_o.shape[-2]
     dev = rays_o.device
     chunk = min(cfg.max_ray_batch, n)
     if n % chunk:
         raise ValueError(f"{n} rays are not a multiple of the chunk {chunk}")
     steps = cfg.march_steps if cfg.march_steps > 0 else cfg.num_steps
     if perturb:
-        jitter = _draw((n, steps), jitter, generator, dev)
+        jitter = _draw((*lead, n, steps), jitter, generator, dev)
     else:
         jitter = None
     if cfg.march_steps == 0 and cfg.upsample_steps > 0 and not det_importance:
-        u = _draw((n, cfg.upsample_steps), u, generator, dev)
+        u = _draw((*lead, n, cfg.upsample_steps), u, generator, dev)
     else:
         u = None
 
@@ -235,7 +247,7 @@ def render_rays_chunked(field_fn: Callable, rays_o: torch.Tensor,
 
     outs = []
     for s in range(0, n, chunk):
-        sl = slice(s, s + chunk)
+        sl = (..., slice(s, s + chunk), slice(None))
         args = (rays_o[sl], rays_d[sl],
                 None if jitter is None else jitter[sl],
                 None if u is None else u[sl])
@@ -244,4 +256,5 @@ def render_rays_chunked(field_fn: Callable, rays_o: torch.Tensor,
                 body, *args, use_reentrant=False))
         else:
             outs.append(body(*args))
-    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    return {k: torch.cat([o[k] for o in outs], dim=len(lead))
+            for k in outs[0]}

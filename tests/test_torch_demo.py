@@ -1,6 +1,7 @@
 """The port's demo CLI on the CPU: the NGP-only slice end to end at full
 model width (``DistillConfig()``, ``NGPConfig()``, and the TPU preset) on
-a 32 px scene, and the paths it refuses."""
+a 32 px scene, LPIPS weights given and missing, scene batches, and the
+device it refuses."""
 import json
 import os
 
@@ -83,10 +84,64 @@ def test_demo_auto_preset_is_the_reference(monkeypatch, tmp_path):
     assert seen == [loop.DistillConfig(max_itr=7)]
 
 
-@pytest.mark.parametrize("extra", [["--lpips_weights", "lpips.npz"],
-                                   ["--no_diffusion", "--scene_batch", "2"]])
-def test_demo_unported_paths_raise(extra, tmp_path):
-    argv = ["-d", "synthetic", "-c", "any", "--device", "cpu",
-            "--exp_dir", str(tmp_path)] + extra
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        demo.main(argv)
+def _metrics(path):
+    with open(path) as fp:
+        fp.readline()
+        return json.loads(fp.read())
+
+
+def test_demo_cpu_writes_the_lpips_metric(tmp_path):
+    """``--lpips_weights vgg16.pth,lpips_vgg.pth`` (synthesized state
+    dicts): the eval's LPIPS column reaches the metrics file.  The new
+    demo tests run the TPU preset at 16 px, the cheapest full-width
+    configuration on the CPU."""
+    from tests.test_torch_lpips import synthesized_state_dicts
+
+    vgg, lin = synthesized_state_dicts()
+    torch.save(vgg, tmp_path / "vgg16.pth")
+    torch.save(lin, tmp_path / "lpips_vgg.pth")
+    out = tmp_path / "out"
+    results = demo.main([
+        "-d", "synthetic", "-c", "any", "-i", "0", "-v", "2",
+        "--image_size", "16", "--max_itr", "2", "--no_diffusion",
+        "--preset", "tpu", "--lpips_weights",
+        f"{tmp_path / 'vgg16.pth'},{tmp_path / 'lpips_vgg.pth'}",
+        "--device", "cpu", "--exp_dir", str(out)])
+    metrics = _metrics(out / "metrics" / "any_000_c2.txt")
+    assert set(metrics) == {"psnr", "ssim", "lpips"}
+    assert np.isfinite(metrics["lpips"]) and metrics["lpips"] >= 0
+    assert metrics["lpips"] == pytest.approx(results[0]["metrics"]["lpips"])
+
+
+def test_demo_cpu_without_lpips_weights_warns_and_finishes(tmp_path,
+                                                           capsys):
+    results = demo.main([
+        "-d", "synthetic", "-c", "any", "-i", "0", "-v", "2",
+        "--image_size", "16", "--max_itr", "2", "--no_diffusion",
+        "--preset", "tpu", "--lpips_weights", str(tmp_path / "missing.npz"),
+        "--device", "cpu", "--exp_dir", str(tmp_path)])
+    assert "lpips weights not found" in capsys.readouterr().out
+    assert set(results[0]["metrics"]) == {"psnr", "ssim"}
+    assert set(_metrics(tmp_path / "metrics" / "any_000_c2.txt")) == {
+        "psnr", "ssim"}
+
+
+def test_demo_cpu_scene_batch(tmp_path, capsys):
+    """``--scene_batch 2`` over three scenes of one bucket: scenes 0 and 1
+    in lockstep, scene 2 through the sequential loop, all three written."""
+    results = demo.main([
+        "-d", "synthetic", "-c", "any", "-i", "0,1,2", "-v", "2",
+        "--image_size", "16", "--max_itr", "2", "--no_diffusion",
+        "--preset", "tpu", "--scene_batch", "2", "--device", "cpu",
+        "--exp_dir",
+        str(tmp_path)])
+    assert "scene batch: [0, 1]" in capsys.readouterr().out
+    assert len(results) == 3
+    # the batch's two scenes share its iteration clock
+    assert results[0]["iter_times"] is results[1]["iter_times"]
+    assert results[2]["iter_times"] is not results[0]["iter_times"]
+    for i, r in enumerate(results):
+        assert len(r["losses"]) == 2 and np.isfinite(r["losses"]).all()
+        assert set(_metrics(tmp_path / "metrics" / f"any_00{i}_c2.txt")) \
+            == {"psnr", "ssim"}
+        assert (tmp_path / f"any_00{i}_c2_ngp.npz").exists()

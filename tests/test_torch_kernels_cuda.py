@@ -679,3 +679,91 @@ def test_occupancy_on_the_card_matches_the_cpu():
     stats, bitfield = occupancy_card_vs_cpu("cuda")
     assert stats["rays_apart_away_from_faces"] == 0
     assert 0 < int(bitfield.sum())
+
+
+# the scene axis: S scenes of one encoding in one launch (blockIdx.y)
+SCENE_CASES = {
+    "tiled_f32": (CASES["tiled"][0], None),
+    "hash_f32": (CASES["hash"][0], None),
+    "tiled_bf16_c4": CASES["tiled_bf16_c4"],
+    "ngp_f32": (BWD_CASES["rays_ngp"][0], None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_scenes", [1, 2, 5])
+@pytest.mark.parametrize("case", sorted(SCENE_CASES))
+def test_cuda_scene_batched_launch_matches_single_launches(case, n_scenes):
+    """One scene-batched launch of each kernel against S single-scene
+    launches on the same points and tables: the forward bit-equal (the
+    same body on the same rows), the table gradient to the backward's
+    tolerance (atomics add in another order); one launch counted for S
+    scenes.  A ragged 1000 points a scene (a partial last block)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    kw, table_dtype = SCENE_CASES[case]
+    enc = make_grid_encoding(**kw)
+    gen = torch.Generator(device="cuda").manual_seed(n_scenes)
+    x = torch.rand(n_scenes, 1000, 3, device="cuda", generator=gen) \
+        * 1.1 - 0.05
+    master = torch.randn(n_scenes, enc.total_params, enc.level_dim,
+                         device="cuda", generator=gen) * 0.5
+    g = torch.randn(n_scenes, 1000, enc.output_dim, device="cuda",
+                    generator=gen)
+    bf16 = table_dtype == "bfloat16"
+    table = master.to(torch.bfloat16) if bf16 else master
+    kernels.reset_launches()
+    out = kernels.grid_encode_cuda(x, table, enc)
+    gt = kernels.grid_encode_cuda_backward(x, g, enc, bf16)
+    torch.cuda.synchronize()
+    assert kernels.grid_encode_cuda.launches == 1
+    assert kernels.grid_encode_cuda.scenes == n_scenes
+    assert kernels.grid_encode_cuda_backward.launches == 1
+    assert kernels.grid_encode_cuda_backward.scenes == n_scenes
+    assert out.shape == (n_scenes, 1000, enc.output_dim)
+    assert gt.shape == master.shape
+    for s in range(n_scenes):
+        want = kernels.grid_encode_cuda(x[s].contiguous(), table[s], enc)
+        want_g = kernels.grid_encode_cuda_backward(x[s].contiguous(), g[s],
+                                                   enc, bf16)
+        assert torch.equal(out[s], want), s
+        scale = want_g.abs().max().item()
+        err = (gt[s] - want_g).abs().max().item()
+        assert err <= 1e-5 * max(1.0, scale), (s, err, scale)
+    # and against the plain scene-batched version
+    want = grid_encode_plain(x, master, enc, table_dtype)
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_scene_batched_field_step():
+    """An NGPFieldStack's forward and backward on the card: one K1 launch
+    each for all S scenes, and each scene's gradient equal to its own
+    field's (the sigma net's batched matmul against nn.Linear)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from sparsefusion_tpu_torch.nn.ngp import NGPConfig, NGPField, \
+        NGPFieldStack
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg = NGPConfig(num_levels=8, level_dim=4, table_dtype="bfloat16")
+    fields = [NGPField(cfg, device="cuda", generator=gen) for _ in range(3)]
+    stack = NGPFieldStack(fields)
+    x = torch.rand(3, 4096, 3, device="cuda", generator=gen) * 8.0 - 4.0
+    kernels.reset_launches()
+    sigma, albedo = stack(x)
+    (sigma.sum() + albedo.sum()).backward()
+    torch.cuda.synchronize()
+    assert kernels.grid_encode_cuda.launches == 1
+    assert kernels.grid_encode_cuda.launches_bf16 == 1
+    assert kernels.grid_encode_cuda_backward.launches == 1
+    for s, f in enumerate(fields):
+        sg, al = f(x[s])
+        (sg.sum() + al.sum()).backward()
+        torch.testing.assert_close(sigma[s], sg, rtol=1e-5, atol=1e-6)
+        scale = f.grid.grad.abs().max().item()
+        err = (stack.grid.grad[s] - f.grid.grad).abs().max().item()
+        assert err <= 1e-5 * max(1.0, scale), (s, err)
+    with pytest.raises(ValueError, match="table shape"):
+        kernels.grid_encode_cuda(x[:2].contiguous(), stack.grid.detach(),
+                                 stack.enc)
