@@ -96,7 +96,8 @@ first), except in the TF32 train profile of step 7.
    torchvision / lpips weights): the card against the CPU at 64 px, the
    device ms of the fusion step's perceptual term (forward and input
    backward at 256 px) beside its operations bound, and the diffusion
-   demo with ``--lpips_weights`` (the eval's LPIPS column finite).
+   demo with ``--lpips_weights``, 30 iterations (the eval's LPIPS column
+   finite).
 7. Training.  One train step of the tiny models (``--preset tiny``: K2
    at head dim 8) on the card against the CPU from the same weights,
    batch and draws, in f32 and with the UNet in bf16: loss, every
@@ -117,9 +118,32 @@ first), except in the TF32 train profile of step 7.
    fixed draws whose loss and gradients are held against the f32 one.
    Then one full-width visualization grid (64-step ancestral sample),
    called directly.
-8. Prints the kernels' JSON line (K2's bf16 instance and K1's
-   scene-batched launches entries of their own; K3's launches are the
-   micro's), then ``{"ok": true, "device": ...}`` as the last line.
+8. The JAX package's last modules.  Mesh export (``render/mesh.py``)
+   from the fields of step 5's two NGP-only demos (16 x C2 f32, and the
+   TPU preset's 8 x C4 read in bf16), rebuilt from their returned
+   parameters: the 128^3 export and the textured export (``.obj``,
+   ``.mtl``, ``.png``) over [-4, 4]^3 at density 10, K1's launches
+   counted over them (32 for the grid, plus the bake's; the textured
+   export on the first field only: the preset's field has millions of
+   faces); the same extraction on the CPU through the plain encode: the
+   density grids, face and vertex counts, the symmetric nearest-vertex
+   distance and the atlas (the CPU's bake of the card's mesh, over the
+   cells of its first 4096 faces) held within stated tolerances; K1 on one 65,536-point grid chunk against its plain
+   version and its bytes bound; device ms of the grid and of the export,
+   host seconds of the grid, the marching and the writes; the 256^3
+   export for its times; the analytic blob field of scene 0 at 128^3,
+   every vertex at the iso level within a stated share.  The parity
+   sweep (``tools/make_toy_fixture.py`` at 256 px, then
+   ``tools/parity_sweep.py``, full-width models): NGP-only at 2 and 3
+   views for 100 iterations (PSNR >= 15) and one diffusion row under
+   ``--preset tpu`` at 1002 iterations, the fewest that reach a fusion
+   step, with the launch counts reset before each row and read after it
+   (K2 three times a UNet evaluation).  The Perceiver resampler at the
+   JAX package's default width, card against CPU.
+9. Prints the kernels' JSON line (K2's bf16 instance, K1's
+   scene-batched launches and K1's mesh launches entries of their own;
+   K3's launches are the micro's), then ``{"ok": true, "device": ...}``
+   as the last line.
 
 Every check asserts or raises; the script exits non-zero without a
 result when there is no CUDA device or the port is not importable.
@@ -1396,7 +1420,7 @@ def tpu_ngp_main_path():
     assert launches["grid_encode_fwd_bf16"] == launches["grid_encode_fwd"]
     assert launches["grid_encode_bwd"] > 0
     assert files_ok and np.isfinite(r["renders"]).all()
-    return launches, stats
+    return launches, stats, r["ngp_params"]
 
 
 def main_path():
@@ -1450,7 +1474,7 @@ def main_path():
     assert np.isfinite(r["renders"]).all()
     return launches, {"it_per_s": its, "peak_gib": peak / 2 ** 30,
                       "wall_s": wall, "psnr": psnr,
-                      "phase_b_launches": phase_b.k1()}
+                      "phase_b_launches": phase_b.k1()}, r["ngp_params"]
 
 
 class _PhaseB:
@@ -2207,6 +2231,380 @@ def visualization_check(models, rel, scene):
     return stats
 
 
+# ---- the JAX package's last modules: mesh export, the sweep, Perceiver ----
+
+MESH_BOUND = 4.0
+MESH_RES = 128
+MESH_CHUNK = 65536
+# card against CPU on one field's export: the density grids (K1 and the
+# MLP against the plain encode: float32 sums in another order, relative
+# ~1e-5 of sigma = exp(h)); face and vertex counts; the symmetric
+# nearest-vertex distance in grid spacings, its 99.99th percentile and
+# its maximum; the baked atlas of the card's mesh against the CPU bake of
+# the same mesh.  A vertex moves by the grid's difference over the
+# difference of its edge's two values, so where a surface crosses an
+# edge nearly flat a 1e-6 difference moves it far: the maximum over the
+# preset field's 2M vertices is a tail statistic (8.7e-5 to 5.9e-4
+# spacings in the first runs), held at 1e-2; the 99.99th percentile at
+# 1e-3
+MESH_GRID_RTOL = 1e-4
+MESH_COUNT_TOL = 1e-3
+MESH_DIST_TOL = 1e-3
+MESH_DIST_MAX_TOL = 1e-2
+MESH_ATLAS_TOL = 1e-4
+MESH_ATLAS_FACES = 4096
+# K1 takes ~20 us on a grid chunk: a profiler window of PROFILE_ITERS
+# launches (0.2 ms) could end before the tracer recorded any of them
+MESH_CHUNK_ITERS = 100
+# the analytic blob field: a vertex's field value against the iso level,
+# as a share of it (linear interpolation along an edge of 8 / 127 inside
+# gaussians of radius 0.45; 3.2% measured on the CPU)
+BLOB_ISO_TOL = 0.05
+
+
+def _field(ngp_config, params, device):
+    from sparsefusion_tpu_torch.nn.ngp import NGPField, load_jax_params
+
+    field = NGPField(ngp_config, device=device)
+    load_jax_params(field, params)
+    return field.eval().requires_grad_(False)
+
+
+def _nearest(a, b):
+    """The distance from each row of ``a`` to its nearest row of ``b``, in
+    float64 (a k-d tree on the host)."""
+    from scipy.spatial import cKDTree
+
+    return cKDTree(b.double().cpu().numpy()).query(
+        a.double().cpu().numpy())[0]
+
+
+def _atlas_cells(tex, n_cells, block=8):
+    """The first ``n_cells`` (block, block) chart cells of an atlas, in
+    the bake's cell order (row-major over the atlas)."""
+    per_row = tex.shape[0] // block
+    cells = tex.reshape(per_row, block, per_row, block, 3)
+    return cells.permute(0, 2, 1, 3, 4).reshape(-1, block, block, 3)[:n_cells]
+
+
+def _host_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mesh_export_check(name, ngp_config, params, exp_dir, textured):
+    """``render/mesh.py`` on the card from a distilled field: the 128^3
+    export (K1's launches counted over it, its device ms profiled), and
+    with ``textured`` the textured export; held against the same
+    extraction on the CPU through the plain encode; K1 on one 65,536-point
+    grid chunk against its plain version and its bound; host seconds of
+    the grid, the marching and the writes."""
+    from sparsefusion_tpu_torch.kernels.grid_encode import grid_encode_cuda
+    from sparsefusion_tpu_torch.ops.grid_encode import grid_encode_plain
+    from sparsefusion_tpu_torch.render import mesh
+
+    card, cpu = (_field(ngp_config, params, d) for d in ("cuda", "cpu"))
+
+    def sigma(field):
+        return lambda x: field.density(x)["sigma"]
+
+    def albedo(field):
+        return lambda x: field.density(x)["albedo"]
+
+    kw = dict(bound=MESH_BOUND, resolution=MESH_RES, chunk=MESH_CHUNK)
+    n_launches = MESH_RES ** 3 // MESH_CHUNK
+    # the main path: the export, counted and profiled
+    out = {}
+
+    def export():
+        out["mesh"] = mesh.export_mesh(sigma(card), f"{exp_dir}/{name}.obj",
+                                       density_thresh=10.0, device="cuda",
+                                       **kw)
+
+    export_dev, _, export_ms = profile_window(export, 1, reset=_reset_counts)
+    grid_launches = _read_counts()["grid_encode_fwd"]
+    v, f = out["mesh"]
+    textured_launches, tex = 0, None
+    if textured:
+        _reset_counts()
+        (tv, tf, tex), textured_s = _host_s(
+            lambda: mesh.export_mesh_textured(
+                sigma(card), albedo(card), f"{exp_dir}/{name}_tex.obj",
+                density_thresh=10.0, device="cuda", **kw))
+        textured_launches = _read_counts()["grid_encode_fwd"]
+    print(f"mesh export ({name}): {len(f)} faces, {len(v)} vertices; "
+          f"export {export_ms / 1e3:.2f} s", flush=True)
+
+    # the same extraction on the CPU, through the plain encode: the
+    # export's two steps, the density grid and the marching
+    xs = mesh.grid_axis(MESH_BOUND, MESH_RES)
+    spacing = float(xs[1] - xs[0])
+    origin = np.full(3, -MESH_BOUND)
+    spacings = np.full(3, xs[1] - xs[0], np.float64)
+    t0 = time.perf_counter()
+    grid_cpu = mesh.density_grid(sigma(cpu), device="cpu", **kw)
+    v_cpu, f_cpu = mesh.marching_tetrahedra(grid_cpu, 10.0, origin, spacings)
+    cpu_s = time.perf_counter() - t0
+    grid_card, grid_s = _host_s(lambda: mesh.density_grid(
+        sigma(card), device="cuda", **kw))
+    _, march_s = _host_s(lambda: mesh.marching_tetrahedra(
+        grid_card, 10.0, origin, spacings))
+    grid_rel = ((grid_card.cpu() - grid_cpu).abs()
+                / grid_cpu.abs().clamp(min=1e-6)).max().item()
+    dists = np.concatenate([_nearest(v, v_cpu), _nearest(v_cpu, v)]) \
+        if len(v) else np.zeros(1)
+    dist, dist_p9999 = float(dists.max()), float(np.quantile(dists, 0.9999))
+    counts = {"faces": (len(f), len(f_cpu)), "vertices": (len(v), len(v_cpu))}
+    count_rel = max(abs(a - b) / max(b, 1) for a, b in counts.values())
+    stats = {"layout": name, "faces": counts["faces"],
+             "vertices": counts["vertices"], "count_rel": count_rel,
+             "grid_max_rel": grid_rel, "nearest_vertex_max": dist,
+             "nearest_vertex_max_spacings": dist / spacing,
+             "nearest_vertex_p9999_spacings": dist_p9999 / spacing,
+             "k1_launches_grid": grid_launches,
+             "export_device_ms": sum(export_dev.values()),
+             "export_host_s": export_ms / 1e3, "grid_host_s": grid_s,
+             "march_host_s": march_s,
+             "writes_host_s": export_ms / 1e3 - grid_s - march_s,
+             "cpu_grid_and_march_s": cpu_s}
+    if textured:
+        # the atlas: the CPU bake of the card's mesh against the card's
+        # bake, over the cells of its first MESH_ATLAS_FACES faces (a
+        # cell's texels depend on its own two faces only)
+        n_faces = min(len(tf), MESH_ATLAS_FACES)
+        tex_cpu, _ = mesh.bake_texture(tv.cpu(), tf[:n_faces].cpu(),
+                                       albedo(cpu), chunk=MESH_CHUNK)
+        n_cells = (n_faces + 1) // 2
+        stats.update({
+            "k1_launches_textured": textured_launches,
+            "textured_host_s": textured_s, "atlas_size": tex.shape[0],
+            "atlas_max_abs": (_atlas_cells(tex.cpu(), n_cells)
+                              - _atlas_cells(tex_cpu, n_cells)
+                              ).abs().max().item(),
+            "files": {ext: os.path.exists(f"{exp_dir}/{name}_tex{ext}")
+                      for ext in (".obj", ".mtl", ".png")}})
+
+    # K1 on the middle grid chunk (x around 0: through the object)
+    grid = torch.stack(torch.meshgrid(*[torch.from_numpy(xs).cuda()] * 3,
+                                      indexing="ij"), -1).reshape(-1, 3)
+    x01 = ((grid[16 * MESH_CHUNK:17 * MESH_CHUNK] + MESH_BOUND)
+           / (2 * MESH_BOUND)).contiguous()
+    bf16 = ngp_config.table_dtype == "bfloat16"
+    table = card.grid.to(torch.bfloat16) if bf16 else card.grid
+    enc = card.enc
+    k1_out = grid_encode_cuda(x01, table, enc)
+    plain = grid_encode_plain(x01, card.grid, enc, ngp_config.table_dtype)
+    grid_dev = device_ms(lambda: mesh.density_grid(
+        sigma(card), device="cuda", **kw), 3)
+    stats.update({
+        "k1_max_abs_err_chunk": (k1_out - plain).abs().max().item(),
+        "k1_ms_per_launch": named_ms(device_ms(
+            lambda: grid_encode_cuda(x01, table, enc), MESH_CHUNK_ITERS),
+            "grid_encode_fwd_kernel"),
+        "k1_plain_ms": sum(device_ms(lambda: grid_encode_plain(
+            x01, card.grid, enc, ngp_config.table_dtype),
+            PROFILE_ITERS).values()),
+        "k1_grid_ms_per_launch": named_ms(
+            grid_dev, "grid_encode_fwd_kernel") / n_launches,
+        "grid_device_ms": sum(grid_dev.values())})
+    stats["k1_bound_ms"], stats["k1_bound_by"] = _bound(
+        _nbytes(x01, table, k1_out))
+    print(f"mesh export ({name}, {MESH_RES}^3): " + json.dumps(stats))
+    assert len(f) > 0, f"{name}: no faces at density_thresh 10"
+    assert grid_launches == n_launches, grid_launches
+    assert stats["k1_max_abs_err_chunk"] <= 1e-5, stats
+    assert grid_rel <= MESH_GRID_RTOL, grid_rel
+    assert count_rel <= MESH_COUNT_TOL, counts
+    assert dist_p9999 <= MESH_DIST_TOL * spacing, dist_p9999 / spacing
+    assert dist <= MESH_DIST_MAX_TOL * spacing, dist / spacing
+    if textured:
+        assert textured_launches > n_launches, textured_launches
+        assert all(stats["files"].values()), stats["files"]
+        assert stats["atlas_max_abs"] <= MESH_ATLAS_TOL, stats
+    return stats
+
+
+def mesh_timing_256(ngp_config, params, exp_dir):
+    """The 256^3 export of one field, for its times only (256 launches)."""
+    from sparsefusion_tpu_torch.render import mesh
+
+    card = _field(ngp_config, params, "cuda")
+
+    def sigma(x):
+        return card.density(x)["sigma"]
+
+    _reset_counts()
+    (v, f), export_s = _host_s(lambda: mesh.export_mesh(
+        sigma, f"{exp_dir}/mesh256.obj", resolution=256, device="cuda"))
+    launches = _read_counts()["grid_encode_fwd"]
+    grid, grid_s = _host_s(lambda: mesh.density_grid(sigma, resolution=256,
+                                                     device="cuda"))
+    _, march_s = _host_s(lambda: mesh.marching_tetrahedra(
+        grid, 10.0, np.full(3, -4.0), np.full(3, 8.0 / 255)))
+    grid_dev = device_ms(lambda: mesh.density_grid(
+        sigma, resolution=256, device="cuda"), 1)
+    stats = {"faces": len(f), "vertices": len(v), "k1_launches": launches,
+             "k1_grid_ms_per_launch": named_ms(
+                 grid_dev, "grid_encode_fwd_kernel") / 256,
+             "grid_device_ms": sum(grid_dev.values()),
+             "export_host_s": export_s, "grid_host_s": grid_s,
+             "march_host_s": march_s,
+             "writes_host_s": export_s - grid_s - march_s}
+    print("mesh export (256^3): " + json.dumps(stats))
+    assert launches == 256 and len(f) > 0, (launches, len(f))
+    return launches
+
+
+def blob_mesh_check(exp_dir):
+    """The extractor on an analytic field: ``data/synthetic.py``'s blobs of
+    scene 0 at 128^3 on the card; every vertex's field value within
+    BLOB_ISO_TOL of the iso level."""
+    from sparsefusion_tpu_torch.data.synthetic import blob_field
+    from sparsefusion_tpu_torch.render import mesh
+
+    rng = np.random.RandomState(0)   # make_synthetic_scene(seed=0)'s blobs
+    centers = rng.uniform(-0.7, 0.7, (4, 3)).astype(np.float32)
+    colors = rng.uniform(0.2, 1.0, (4, 3)).astype(np.float32)
+    field = blob_field(centers, colors, device="cuda")
+    v, f = mesh.export_mesh(lambda x: field(x)[0], f"{exp_dir}/blob.obj",
+                            device="cuda")
+    dev = (field(v)[0] - 10.0).abs() / 10.0
+    print(f"blob mesh (128^3): {len(v)} vertices, {len(f)} faces, field "
+          f"at the vertices within {dev.max().item():.4f} of the iso level "
+          f"(mean {dev.mean().item():.4f}; tolerance {BLOB_ISO_TOL})")
+    assert len(f) > 1000 and dev.max().item() <= BLOB_ISO_TOL
+
+
+def mesh_phase(fields):
+    """``fields``: {layout name: (NGPConfig, distilled params)}.  Returns
+    K1's launches on the mesh paths (the main exports, and 256^3)."""
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_mesh_") as d:
+        # the textured export on the first field's mesh; the second's
+        # (the TPU preset's 600-iteration field) has millions of faces,
+        # whose bake and text take minutes
+        stats = {name: mesh_export_check(name, cfg, params, d, i == 0)
+                 for i, (name, (cfg, params)) in enumerate(fields.items())}
+        for name, s in stats.items():
+            launches[f"mesh_{name}"] = (s["k1_launches_grid"]
+                                        + s.get("k1_launches_textured", 0))
+        cfg, params = next(iter(fields.values()))
+        launches["mesh_256"] = mesh_timing_256(cfg, params, d)
+        blob_mesh_check(d)
+    return launches, stats
+
+
+class _PerRow:
+    """Launch counts and UNet evaluations of each ``distillation_loop``
+    call (each row of the parity sweep): the counts reset just before
+    the call and read just after."""
+
+    def __enter__(self):
+        from sparsefusion_tpu_torch.distill import loop
+
+        self.rows, self._loop = [], loop
+        self._fn = fn = loop.distillation_loop
+
+        def counted(*args, **kw):
+            _reset_counts()
+            out = fn(*args, **kw)
+            self.rows.append({"launches": _read_counts(),
+                              "unet_evals": out["unet_evals"]})
+            return out
+
+        loop.distillation_loop = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._loop.distillation_loop = self._fn
+        return False
+
+
+SWEEP_DIFFUSION_ITR = 1002   # the first fusion step is iteration 1001
+
+
+def sweep_phase():
+    """The parity sweep's counterpart on the card: a 256 px fixture (one
+    category, one scene) by ``tools/make_toy_fixture.py``, then
+    ``tools/parity_sweep.py`` with full-width models: NGP-only at 2 and 3
+    views, 100 iterations; and one diffusion row (2 views) at the
+    smallest ``--max_itr`` that reaches the fusion step, under ``--preset
+    tpu``.  K1 launches on every row, K2 three times a UNet evaluation;
+    every PSNR finite, the NGP-only rows' >= 15."""
+    from sparsefusion_tpu_torch.tools import make_toy_fixture, parity_sweep
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_sweep_") as d:
+        make_toy_fixture.main(["--root", f"{d}/fixture", "--categories",
+                               "hydrant", "--scenes", "1", "--views", "10",
+                               "--size", "256"])
+        base = ["--root", f"{d}/fixture", "--categories", "hydrant",
+                "--scenes", "0"]
+        for kind, argv in (
+                ("ngp", ["--views", "2", "3", "--max_itr", "100",
+                         "--no_diffusion"]),
+                ("diffusion", ["--views", "2", "--max_itr",
+                               str(SWEEP_DIFFUSION_ITR), "--preset", "tpu"])):
+            t0 = time.perf_counter()
+            with _PerRow() as per_row:
+                rows = parity_sweep.main(base + argv + ["--out",
+                                                        f"{d}/{kind}"])
+            wall = time.perf_counter() - t0
+            with open(f"{d}/{kind}/parity_sweep.md") as fp:
+                table = fp.read()
+            print(f"parity sweep ({kind}, {wall:.1f} s):\n{table}", end="")
+            for row, counted in zip(rows, per_row.rows):
+                c = counted["launches"]
+                print(f"parity sweep row {json.dumps(row)}: launches "
+                      f"{json.dumps(c)}, UNet evaluations "
+                      f"{counted['unet_evals']}")
+                assert math.isfinite(row["psnr"]), row
+                assert c["grid_encode_fwd"] > 0 and c["grid_encode_bwd"] > 0
+                assert c["imagen_attention"] == 3 * counted["unet_evals"], c
+                if kind == "ngp":
+                    assert row["psnr"] >= 15.0, row
+                    assert counted["unet_evals"] == 0
+                else:
+                    assert counted["unet_evals"] > 0
+            assert os.path.exists(f"{d}/{kind}/parity_sweep.json")
+            assert len(rows) == len(per_row.rows) == (
+                2 if kind == "ngp" else 1)
+            out[kind] = {"rows": rows, "launches": [
+                r["launches"] for r in per_row.rows], "wall_s": wall}
+    return out
+
+
+PERCEIVER_TOL = 1e-4   # card against CPU, f32 (TF32 off), outputs O(1)
+
+
+def perceiver_check():
+    """``nn/layers.py::PerceiverResampler`` at the JAX package's default
+    width (dim 512, depth 2, 8 heads x 64, 64 + 4 latents) over 256
+    tokens, batch 2: the card against the CPU from the same weights."""
+    from sparsefusion_tpu_torch.nn.flax_layout import init_like_flax_
+    from sparsefusion_tpu_torch.nn.layers import PerceiverResampler
+
+    cpu = PerceiverResampler(512)
+    init_like_flax_(cpu, torch.Generator().manual_seed(0))
+    card = PerceiverResampler(512).cuda()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 256, 512, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = cpu(x)
+        got = card(x.cuda())
+        ms = sum(device_ms(lambda: card(x.cuda()), PROFILE_ITERS).values())
+    err = (got.cpu() - want).abs().max().item()
+    print(f"Perceiver resampler (dim 512, 68 latents over 256 tokens): "
+          f"{tuple(got.shape)}, card vs CPU max abs err {err:.3e} "
+          f"(tolerance {PERCEIVER_TOL}; max |out| "
+          f"{want.abs().max().item():.2f}), {ms:.4f} device ms")
+    assert got.shape == (2, 68, 512) and torch.isfinite(got).all()
+    assert err <= PERCEIVER_TOL, err
+
+
 def _k2_entry(name, source, attn_err, attn_times, by_path, profile,
               by_body=None, phase_by_body=None):
     """One of K2's instances in the kernels line; the bf16 one with its
@@ -2336,8 +2734,8 @@ def main(argv=None) -> int:
     _mark("steps card vs CPU")
     small_occupancy_steps_check(occupancy_card_check())
     _mark("occupancy card vs CPU")
-    ngp_launches, ngp_stats = main_path()
-    tpu_ngp_launches, tpu_ngp_stats = tpu_ngp_main_path()
+    ngp_launches, ngp_stats, ngp_params = main_path()
+    tpu_ngp_launches, tpu_ngp_stats, tpu_ngp_params = tpu_ngp_main_path()
     _mark("NGP-only demos")
     # per kind: the whole run's launches, and K1's in Phase B (every one
     # of them scene-batched)
@@ -2364,8 +2762,10 @@ def main(argv=None) -> int:
         torch.save(vgg, f"{d}/vgg16.pth")
         torch.save(lin, f"{d}/lpips_vgg.pth")
         lpips_term = lpips_fusion_term_profile(spec)
-        lpips_launches, lpips_stats = diffusion_main_path("lpips",
-                                                          lpips_spec=spec)
+        # 30 iterations, as the bf16 sampler's run: it keeps the smoke's
+        # time with the mesh export, sweep and Perceiver phase added
+        lpips_launches, lpips_stats = diffusion_main_path(
+            "lpips", max_itr=30, lpips_spec=spec)
     print("LPIPS demo against the f32 demo: fusion it/s "
           f"{lpips_stats['fusion_it_per_s']:.4f} vs "
           f"{diffusion_stats['fusion_it_per_s']:.4f}; LPIPS term "
@@ -2391,6 +2791,19 @@ def main(argv=None) -> int:
             reference = first
     del reference
     _mark("train step profiles")
+    from sparsefusion_tpu_torch.distill.loop import (
+        DistillConfig,
+        tpu_distill_config,
+    )
+
+    mesh_launches, mesh_stats = mesh_phase({
+        "ngp_16xC2_f32": (DistillConfig().ngp, ngp_params),
+        "tpu_8xC4_bf16": (tpu_distill_config().ngp, tpu_ngp_params)})
+    _mark("mesh export")
+    sweep = sweep_phase()
+    _mark("parity sweep")
+    perceiver_check()
+    _mark("Perceiver resampler")
     print("train step profiles: " + json.dumps({
         p: {key: s[key] for key in ("device_ms_per_step", "host_ms_per_step",
                                     "bound_ms", "bound_share",
@@ -2405,7 +2818,11 @@ def main(argv=None) -> int:
              "diffusion_demo_bf16_sampler": bf16_launches,
              "train_bf16": bf16_train_launches,
              "tpu_preset_ngp_demo": tpu_ngp_launches,
-             "tpu_preset_diffusion_demo": tpu_launches}
+             "tpu_preset_diffusion_demo": tpu_launches,
+             **{f"parity_sweep_{kind}": {
+                 k: sum(c[k] for c in out["launches"])
+                 for k in out["launches"][0]}
+                for kind, out in sweep.items()}}
 
     def by_path(name, bf16=None):
         out = {}
@@ -2482,6 +2899,21 @@ def main(argv=None) -> int:
             "bf16_8xC4": {key: scene_times["ngp_8xC4_bf16"][
                 f"{direction}_{key}"] for key in (
                     "ms", f"ms_{SCENES}_single_launches", "bound_ms")}})
+    ms = mesh_stats["ngp_16xC2_f32"]
+    mb = mesh_stats["tpu_8xC4_bf16"]
+    kernels.append({
+        "name": "grid_encode_fwd_mesh", "route": "cuda", "source": src,
+        "replaces": "sparsefusion_tpu/kernels/grid_gather.py:79",
+        "launches": sum(mesh_launches.values()),
+        "launches_by_path": mesh_launches,
+        "max_abs_err": max(s_["k1_max_abs_err_chunk"]
+                           for s_ in mesh_stats.values()),
+        "ms": ms["k1_ms_per_launch"], "plain_ms": ms["k1_plain_ms"],
+        "bound_ms": ms["k1_bound_ms"], "bound_by": ms["k1_bound_by"],
+        "library_ms": None, "points": MESH_CHUNK,
+        "grid_ms_per_launch": ms["k1_grid_ms_per_launch"],
+        "bf16_8xC4": {key: mb[f"k1_{key}"] for key in (
+            "ms_per_launch", "plain_ms", "bound_ms", "grid_ms_per_launch")}})
     assert all(math.isfinite(k["ms"]) for k in kernels)
     assert all(k["launches"] > 0 for k in kernels), \
         [(k["name"], k["launches"]) for k in kernels]

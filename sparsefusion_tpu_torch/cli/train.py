@@ -137,6 +137,7 @@ def main(argv=None):
     gradient)."""
     args = parse_args(argv)
     from sparsefusion_tpu_torch.cli.demo import load_dataset, resolve_device
+    from sparsefusion_tpu_torch.models import count_params
     from sparsefusion_tpu_torch.parallel.mesh import (
         maybe_init_distributed,
         process_device,
@@ -173,7 +174,7 @@ def main(argv=None):
     models = build_trio(args, device)
     models = maybe_import_reference_weights(models, None, args.vae_ckpt,
                                             None, verbose=rank == 0)
-    n_unet = sum(p.numel() for p in models.unet.parameters())
+    n_unet = count_params(models.unet)
     print(f"UNet has {n_unet * 1e-6:.2f} M params")
     dataset = load_dataset(args, device)
 

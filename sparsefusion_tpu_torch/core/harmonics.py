@@ -21,6 +21,19 @@ def harmonic_frequencies(n_harmonic_functions: int = 6, omega_0: float = 1.0,
     return freqs * omega_0
 
 
+def harmonic_embedding(x: torch.Tensor, frequencies,
+                       append_input: bool = True) -> torch.Tensor:
+    """Embed ``x`` (..., D) -> (..., D * (2 * n_freqs + append_input)):
+    [sin(f_i * x_d) interleaved per input dim, then cos, then x]."""
+    freqs = torch.as_tensor(np.asarray(frequencies), dtype=x.dtype,
+                            device=x.device)
+    embed = (x[..., None] * freqs).reshape(*x.shape[:-1], -1)
+    parts = [embed.sin(), embed.cos()]
+    if append_input:
+        parts.append(x)
+    return torch.cat(parts, dim=-1)
+
+
 @dataclasses.dataclass(frozen=True)
 class HarmonicEmbedding:
     """(..., D) -> (..., D * (2 * n_harmonic_functions + append_input))."""
@@ -31,12 +44,6 @@ class HarmonicEmbedding:
     append_input: bool = True
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        freqs = torch.as_tensor(
-            harmonic_frequencies(self.n_harmonic_functions, self.omega_0,
-                                 self.logspace), dtype=x.dtype,
-            device=x.device)
-        embed = (x[..., None] * freqs).reshape(*x.shape[:-1], -1)
-        parts = [embed.sin(), embed.cos()]
-        if self.append_input:
-            parts.append(x)
-        return torch.cat(parts, dim=-1)
+        return harmonic_embedding(
+            x, harmonic_frequencies(self.n_harmonic_functions, self.omega_0,
+                                    self.logspace), self.append_input)

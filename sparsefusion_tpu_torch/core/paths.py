@@ -144,3 +144,15 @@ def get_interpolated_path(cams: Cameras, n: int = 50, method: str = "circle",
         image_size=np.broadcast_to(image_size, (n, 2)),
         device=device,
     )
+
+
+def get_angles(target_cam: Cameras, context_cams: Cameras,
+               centroid: np.ndarray) -> np.ndarray:
+    """Angles (degrees) between the target camera and each context camera
+    about ``centroid``, numpy."""
+    a = camera_centers(target_cam).detach().cpu().numpy() - centroid[None]
+    b = camera_centers(context_cams).detach().cpu().numpy() - centroid[None]
+    a = np.broadcast_to(a, b.shape)
+    cos = np.sum(a * b, axis=-1) / (
+        np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+    return np.degrees(np.arccos(np.clip(cos, -1, 1)))

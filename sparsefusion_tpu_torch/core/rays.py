@@ -5,7 +5,8 @@ its rays with *reversed* NDC bounds (min_x = 1 - 1/W, max_x = -1 + 1/W)
 and ``_xy_to_ray_bundle`` semantics: unproject each xy at depths 1 and 2,
 direction = p2 - p1 (unnormalized, unit z in view space), origin =
 p1 - direction (the camera center), lengths = linspace(min_depth,
-max_depth) as view-space z-depths.
+max_depth) as view-space z-depths.  The Monte Carlo sampler's uniform
+xy draws come from an explicit ``torch.Generator``, or are passed in.
 """
 from __future__ import annotations
 
@@ -25,6 +26,13 @@ class RayBundle:
     directions: torch.Tensor
     lengths: torch.Tensor
     xys: Optional[torch.Tensor]
+
+
+def ray_points(bundle: RayBundle) -> torch.Tensor:
+    """World points along the rays, o + d * t: (..., P, 3) (pytorch3d
+    ``ray_bundle_to_ray_points``)."""
+    return (bundle.origins[..., None, :]
+            + bundle.directions[..., None, :] * bundle.lengths[..., :, None])
 
 
 def xy_to_ray_bundle(cameras: Cameras, xy_grid: torch.Tensor,
@@ -65,14 +73,90 @@ def grid_xys(image_height: int, image_width: int, min_x: float, max_x: float,
     return torch.stack([x_grid, y_grid], dim=-1)
 
 
+@dataclasses.dataclass(frozen=True)
+class GridRaysampler:
+    """Fixed-shape grid ray sampler (pytorch3d GridRaysampler semantics)."""
+
+    min_x: float
+    max_x: float
+    min_y: float
+    max_y: float
+    image_height: int
+    image_width: int
+    n_pts_per_ray: int
+    min_depth: float
+    max_depth: float
+
+    def __call__(self, cameras: Cameras) -> RayBundle:
+        xy = grid_xys(self.image_height, self.image_width, self.min_x,
+                      self.max_x, self.min_y, self.max_y,
+                      device=cameras.device)
+        xy = xy[None].expand(len(cameras), *xy.shape)
+        return xy_to_ray_bundle(cameras, xy, self.min_depth, self.max_depth,
+                                self.n_pts_per_ray)
+
+
+@dataclasses.dataclass(frozen=True)
+class MonteCarloRaysampler:
+    """Uniform-random xy sampler (pytorch3d MonteCarloRaysampler
+    semantics): per camera, ``n_rays_per_image`` xs and then as many ys,
+    uniform over the bounds, drawn from ``generator`` unless ``xys``
+    (N, n_rays_per_image, 2) is given."""
+
+    min_x: float
+    max_x: float
+    min_y: float
+    max_y: float
+    n_rays_per_image: int
+    n_pts_per_ray: int
+    min_depth: float
+    max_depth: float
+
+    def __call__(self, cameras: Cameras,
+                 generator: Optional[torch.Generator] = None,
+                 xys: Optional[torch.Tensor] = None) -> RayBundle:
+        if xys is None:
+            shape = (len(cameras), self.n_rays_per_image)
+
+            def uniform(a, b):
+                lo, hi = min(a, b), max(a, b)
+                u = torch.rand(shape, generator=generator,
+                               device=cameras.device)
+                return lo + u * (hi - lo)
+
+            xs = uniform(self.min_x, self.max_x)
+            xys = torch.stack([xs, uniform(self.min_y, self.max_y)], dim=-1)
+        return xy_to_ray_bundle(cameras, xys, self.min_depth,
+                                self.max_depth, self.n_pts_per_ray)
+
+
 def grid_ray_bundle(cameras: Cameras, image_height: int, image_width: int,
                     n_pts_per_ray: int, min_depth: float,
                     max_depth: float) -> RayBundle:
     """Grid rays with the reference's reversed half-pixel bounds."""
     half_w = 1.0 / image_width
     half_h = 1.0 / image_height
-    xy = grid_xys(image_height, image_width, 1.0 - half_w, -1.0 + half_w,
-                  1.0 - half_h, -1.0 + half_h, device=cameras.device)
-    xy = xy[None].expand(len(cameras), *xy.shape)
-    return xy_to_ray_bundle(cameras, xy, min_depth, max_depth,
-                            n_pts_per_ray)
+    sampler = GridRaysampler(
+        min_x=1.0 - half_w, max_x=-1.0 + half_w,
+        min_y=1.0 - half_h, max_y=-1.0 + half_h,
+        image_height=image_height, image_width=image_width,
+        n_pts_per_ray=n_pts_per_ray, min_depth=min_depth, max_depth=max_depth)
+    return sampler(cameras)
+
+
+def monte_carlo_ray_bundle(cameras: Cameras,
+                           generator: Optional[torch.Generator],
+                           n_rays: int, n_pts_per_ray: int, min_depth: float,
+                           max_depth: float, bbox=None,
+                           xys: Optional[torch.Tensor] = None) -> RayBundle:
+    """Monte Carlo rays over the full NDC square or a bbox (the
+    reference's ``render_utils.py:66-87``)."""
+    if bbox is None:
+        bounds = dict(min_x=-1.0, max_x=1.0, min_y=-1.0, max_y=1.0)
+    else:
+        bounds = dict(min_x=-bbox[0][1], max_x=-bbox[0][3],
+                      min_y=-bbox[0][0], max_y=-bbox[0][2])
+    sampler = MonteCarloRaysampler(
+        n_rays_per_image=n_rays, n_pts_per_ray=n_pts_per_ray,
+        min_depth=min_depth, max_depth=max_depth, **bounds)
+    return sampler(cameras, generator, xys)

@@ -2,8 +2,9 @@
 plain loop.
 
 Counterpart of ``sparsefusion_tpu/diffusion/plms.py``
-(``host_schedule`` and ``plms_sample``; its scan, host and fused forms
-were dispatch devices of XLA and have no counterpart here):
+(``host_schedule``, ``plms_sample`` and the ``PLMSSampler`` wrapper;
+its scan, host and fused forms were dispatch devices of XLA and have no
+counterpart here):
 
 * step 0 is a pseudo improved-Euler step (two UNet evaluations),
 * steps 1 / 2 use 2nd / 3rd-order Adams-Bashforth, later steps AB4,
@@ -19,6 +20,7 @@ and from ``generator`` otherwise.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -136,3 +138,21 @@ def plms_sample(
     if cfg.clip_output:
         img = torch.clamp(img, -cfg.clip_value, cfg.clip_value)
     return img, x_noisy, init_noise, torch.sigmoid(log_snr)
+
+
+@dataclasses.dataclass(frozen=True)
+class PLMSSampler:
+    """:func:`plms_sample` with its DDPM and step count bound, as the
+    reference's ``external/plms.py:13`` call sites use it."""
+
+    ddpm: DDPM
+    plms_steps: int = 50
+
+    def sample(self, denoise_fn, image, max_thres, cond_images=None,
+               cond_scale: float = 1.0, return_noise: bool = False,
+               generator: Optional[torch.Generator] = None,
+               noises: Optional[Sequence[torch.Tensor]] = None):
+        out = plms_sample(self.ddpm, denoise_fn, image, max_thres,
+                          cond_images, cond_scale, self.plms_steps,
+                          generator=generator, noises=noises)
+        return out if return_noise else out[0]

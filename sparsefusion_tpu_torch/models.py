@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from sparsefusion_tpu_torch.core.cameras import Cameras
@@ -18,6 +19,7 @@ from sparsefusion_tpu_torch.nn.eft import EFTConfig, EpipolarFeatureTransformer
 from sparsefusion_tpu_torch.nn.flax_layout import init_like_flax_
 from sparsefusion_tpu_torch.nn.unet import EfficientUNet, UNetConfig
 from sparsefusion_tpu_torch.nn.vae import AutoencoderKL, VAEConfig
+from sparsefusion_tpu_torch.utils.image import normalize, unnormalize
 
 Z_SCALE_FACTOR = 0.18215  # the SD latent scale
 
@@ -88,14 +90,14 @@ class SparseFusionModels:
 
     def vae_encode(self, images_01: torch.Tensor) -> torch.Tensor:
         """[0, 1] RGB (B, H, W, 3) -> scaled latents (B, 4, H/8, W/8)."""
-        x = torch.clamp(images_01 * 2.0 - 1.0, -1.0, 1.0)
+        x = normalize(images_01)
         return self.vae.encode_mode(x.permute(0, 3, 1, 2)) \
             * self.z_scale_factor
 
     def vae_decode(self, z: torch.Tensor) -> torch.Tensor:
         """Scaled latents (B, 4, h, w) -> [0, 1] RGB (B, 8h, 8w, 3)."""
         x = self.vae.decode(z / self.z_scale_factor)
-        return torch.clamp((x + 1.0) / 2.0, 0.0, 1.0).permute(0, 2, 3, 1)
+        return unnormalize(x).permute(0, 2, 3, 1)
 
     def eft_encode(self, images: torch.Tensor) -> torch.Tensor:
         """Context images (NC, H, W, 3) -> (NC, 512, H/2, W/2) latents."""
@@ -154,3 +156,14 @@ def narrow_model_configs():
         vae_config=VAEConfig(ch=32, ch_mult=(1, 1, 2, 2), num_res_blocks=1),
         ddpm_config=DDPMConfig(channels=4, image_size=8, timesteps=100))
 
+
+def count_params(tree) -> int:
+    """Parameter count of a module, or of a tree (dicts, lists, tuples)
+    of tensors or arrays, such as ``export_jax_params``'s."""
+    if isinstance(tree, torch.nn.Module):
+        tree = list(tree.parameters())
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_params(t) for t in tree)
+    return int(np.prod(tree.shape))

@@ -25,8 +25,8 @@ from torch import nn
 
 _NORMS = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)
 # leaves drawn from a standard normal in the JAX package (null key/value
-# pairs, learned Fourier frequencies)
-_NORMAL_LEAVES = ("null_kv", "weights")
+# pairs, learned Fourier frequencies, the Perceiver's positions and latents)
+_NORMAL_LEAVES = ("null_kv", "weights", "pos_emb", "latents")
 
 
 def _lecun_normal_(w: torch.Tensor, generator) -> None:
@@ -82,7 +82,7 @@ def _to_torch_layout(a: np.ndarray, leaf: str, shape) -> np.ndarray:
 
 def _get(tree: Dict, path: str):
     node = tree
-    for part in path.split("/"):
+    for part in filter(None, path.split("/")):
         if part not in node:
             raise KeyError(f"{path}: no '{part}' in the JAX tree")
         node = node[part]

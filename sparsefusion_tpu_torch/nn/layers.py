@@ -367,3 +367,126 @@ class PixelShuffleUpsample(nn.Module):
 
     def forward(self, x):
         return self.net(x)
+
+
+# ---- imagen's Perceiver blocks (not used by the SparseFusion UNet) --------
+
+class FeedForward(nn.Sequential):
+    """Token feed-forward: gamma LayerNorm, Linear to ``dim * mult`` (no
+    bias), exact GELU, gamma LayerNorm, Linear back; (B, N, dim)."""
+
+    def __init__(self, dim: int, mult: float = 4.0):
+        hidden = int(dim * mult)
+        super().__init__(LayerNorm(dim), Linear(dim, hidden, bias=False),
+                         nn.GELU(), LayerNorm(hidden),
+                         Linear(hidden, dim, bias=False))
+
+
+class PerceiverAttention(nn.Module):
+    """Latent queries attending over the tokens and the latents together:
+    (B, N, dim) tokens, (B, M, dim) latents -> (B, M, dim).  Its norms are
+    standard LayerNorms (with bias, eps 1e-5, in f32); the logits are a
+    plain einsum with the softmax in f32, as in the JAX package (K2 does
+    not take it: every query head has its own key/value head here)."""
+
+    def __init__(self, dim: int, dim_head: int = 64, heads: int = 8):
+        super().__init__()
+        self.heads = heads
+        self.dim_head = dim_head
+        inner = dim_head * heads
+        self.norm = LayerNormF32(dim)
+        self.norm_latents = LayerNormF32(dim)
+        self.to_q = Linear(dim, inner, bias=False)
+        self.to_kv = Linear(dim, 2 * inner, bias=False)
+        self.to_out = nn.Sequential(Linear(inner, dim, bias=False),
+                                    LayerNormF32(dim))
+
+    def forward(self, x, latents):
+        b = x.shape[0]
+        h, d = self.heads, self.dim_head
+        x = self.norm(x)
+        latents = self.norm_latents(latents)
+        q = self.to_q(latents).reshape(b, -1, h, d)
+        k, v = self.to_kv(torch.cat([x, latents], dim=-2)).chunk(2, dim=-1)
+        k = k.reshape(b, -1, h, d)
+        v = v.reshape(b, -1, h, d)
+        sim = torch.einsum("bnhd,bjhd->bhnj", q * d ** -0.5, k)
+        attn = torch.softmax(sim.float(), dim=-1).to(v.dtype)
+        out = torch.einsum("bhnj,bjhd->bnhd", attn, v).reshape(b, -1, h * d)
+        return self.to_out(out)
+
+
+class PerceiverResampler(_Compute, nn.Module):
+    """Attention pooling of (B, N, dim) conditioning tokens into
+    ``num_latents_mean_pooled + num_latents`` latents: learned positions
+    added to the tokens, the mean-pooled tokens projected into the first
+    latents, then ``depth`` x (Perceiver attention + feed-forward), each
+    residual.  ``pos_emb`` is the reference's ``pos_emb.weight``."""
+
+    def __init__(self, dim: int, depth: int = 2, dim_head: int = 64,
+                 heads: int = 8, num_latents: int = 64,
+                 num_latents_mean_pooled: int = 4, max_seq_len: int = 512,
+                 ff_mult: float = 4.0):
+        super().__init__()
+        self.num_latents_mean_pooled = num_latents_mean_pooled
+        self.pos_emb = nn.Parameter(torch.randn(max_seq_len, dim))
+        self.latents = nn.Parameter(torch.randn(num_latents, dim))
+        if num_latents_mean_pooled > 0:
+            self.to_latents_from_mean_pooled_seq = nn.Sequential(
+                LayerNorm(dim), Linear(dim, dim * num_latents_mean_pooled))
+        self.layers = nn.ModuleList([
+            nn.ModuleList([PerceiverAttention(dim, dim_head, heads),
+                           FeedForward(dim, ff_mult)])
+            for _ in range(depth)])
+
+    def forward(self, x):
+        b, n, dim = x.shape
+        x = x + self.pos_emb[:n]
+        latents = self.latents[None].expand(b, -1, -1).to(self.compute_dtype)
+        if self.num_latents_mean_pooled > 0:
+            pooled = self.to_latents_from_mean_pooled_seq(x.mean(dim=1))
+            latents = torch.cat([pooled.reshape(
+                b, self.num_latents_mean_pooled, dim), latents], dim=-2)
+        for attn, ff in self.layers:
+            latents = attn(x, latents) + latents
+            latents = ff(latents) + latents
+        return latents
+
+
+def _feed_forward_pairs(t: str, j: str):
+    return [(f"{t}0", f"{j}norm_in"), (f"{t}1", f"{j}in"),
+            (f"{t}3", f"{j}norm_mid"), (f"{t}4", f"{j}out")]
+
+
+def _perceiver_attention_pairs(t: str, j: str):
+    return [(f"{t}norm", f"{j}norm"), (f"{t}norm_latents", f"{j}norm_latents"),
+            (f"{t}to_q", f"{j}to_q"), (f"{t}to_kv", f"{j}to_kv"),
+            (f"{t}to_out.0", f"{j}to_out"), (f"{t}to_out.1", f"{j}out_norm")]
+
+
+def jax_module_pairs(module: nn.Module):
+    """(torch module, JAX module path) of every module with parameters of
+    a :class:`FeedForward`, :class:`PerceiverAttention` or
+    :class:`PerceiverResampler`, for ``nn/flax_layout.py::load_flax_tree``
+    (the root pair "" holds the resampler's own ``pos_emb`` and
+    ``latents``)."""
+    if isinstance(module, FeedForward):
+        return _feed_forward_pairs("", "")
+    if isinstance(module, PerceiverAttention):
+        return _perceiver_attention_pairs("", "")
+    if not isinstance(module, PerceiverResampler):
+        raise TypeError(f"no JAX layout for {type(module).__name__}")
+    pairs = [("", ""),
+             ("to_latents_from_mean_pooled_seq.0", "pool_norm"),
+             ("to_latents_from_mean_pooled_seq.1", "pool_proj")]
+    for i in range(len(module.layers)):
+        pairs += _perceiver_attention_pairs(f"layers.{i}.0.", f"attn_{i}/")
+        pairs += _feed_forward_pairs(f"layers.{i}.1.", f"ff_{i}/")
+    return pairs
+
+
+def load_jax_params(module: nn.Module, params) -> None:
+    """Fill a Perceiver block from its JAX params (a numpy tree)."""
+    from sparsefusion_tpu_torch.nn.flax_layout import load_flax_tree
+
+    load_flax_tree(module, jax_module_pairs(module), params)

@@ -25,6 +25,7 @@ from torch import nn
 from sparsefusion_tpu_torch.ops.grid_encode import (
     GridEncoding,
     grid_encode_bound,
+    init_grid_params,
     make_grid_encoding,
 )
 
@@ -131,10 +132,8 @@ class NGPField(nn.Module):
         cfg = config
         self.config = cfg
         self.enc = cfg.encoding()
-        grid = torch.empty((self.enc.total_params, cfg.level_dim),
-                           device=device)
-        grid.uniform_(-1e-4, 1e-4, generator=generator)
-        self.grid = nn.Parameter(grid)
+        self.grid = nn.Parameter(init_grid_params(generator, self.enc,
+                                                  device=device))
         dims = [self.enc.output_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1)
         for i in range(cfg.num_layers):
             out = cfg.hidden_dim if i < cfg.num_layers - 1 else 4
@@ -175,6 +174,12 @@ class NGPField(nn.Module):
         sigma = trunc_exp(h[..., 0] + self.density_blob(x))
         albedo = torch.sigmoid(h[..., 1:])
         return sigma, albedo
+
+    def density(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """x: (..., 3) -> {"sigma": (...,), "albedo": (..., 3)}: the field
+        function a mesh export is given (``render/mesh.py``)."""
+        sigma, albedo = self(x)
+        return {"sigma": sigma, "albedo": albedo}
 
     def background(self, d: torch.Tensor) -> torch.Tensor:
         """View-direction background color."""

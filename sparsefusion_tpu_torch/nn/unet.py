@@ -78,6 +78,12 @@ class UNetConfig:
         return self.dim * 4
 
 
+def sparsefusion_unet_config() -> UNetConfig:
+    """The paper's UNet hyperparameters (the reference's
+    ``utils/load_model.py:60-69``): the defaults of :class:`UNetConfig`."""
+    return UNetConfig()
+
+
 class EfficientUNet(nn.Module):
     """Latent UNet: x (B, C, h, w), log_snr (B,), cond (B, Cc, h', w').
 
@@ -309,3 +315,14 @@ def jax_module_pairs(cfg: UNetConfig):
 def load_jax_params(unet: EfficientUNet, params: Dict) -> None:
     """Fill ``unet`` from the JAX ``EfficientUNet`` params (numpy tree)."""
     load_flax_tree(unet, jax_module_pairs(unet.config), params)
+
+
+def make_denoise_fn(model: EfficientUNet):
+    """``model`` as the ``denoise_fn(x, log_snr, cond_images, keep_mask)``
+    the samplers take (``diffusion/``); the parameters are the module's
+    own, where the JAX package binds a parameter tree."""
+
+    def denoise_fn(x, log_snr, cond_images, keep_mask):
+        return model(x, log_snr, cond_images, keep_mask)
+
+    return denoise_fn

@@ -110,6 +110,15 @@ def make_grid_encoding(input_dim: int = 3, num_levels: int = 16,
     )
 
 
+def init_grid_params(generator: Optional[torch.Generator],
+                     enc: GridEncoding, std: float = 1e-4,
+                     device=None) -> torch.Tensor:
+    """The table's init: uniform(-std, std), (total_params, level_dim)
+    f32, drawn from ``generator`` on ``device``."""
+    table = torch.empty((enc.total_params, enc.level_dim), device=device)
+    return table.uniform_(-std, std, generator=generator)
+
+
 def _round_table(table: torch.Tensor,
                  table_dtype: Optional[str]) -> torch.Tensor:
     """Table values as read in ``table_dtype``, in f32, with the identity

@@ -24,6 +24,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from sparsefusion_tpu_torch.core.cameras import Cameras
+from sparsefusion_tpu_torch.models import count_params
 from sparsefusion_tpu_torch.nn.eft import EFTConfig, EpipolarFeatureTransformer
 from sparsefusion_tpu_torch.nn.unet import EfficientUNet, UNetConfig
 from sparsefusion_tpu_torch.nn.vae import AutoencoderKL, VAEConfig
@@ -41,10 +42,6 @@ def _count(fn) -> int:
     with counter:
         fn()
     return counter.get_total_flops()
-
-
-def _n_params(module) -> int:
-    return sum(p.numel() for p in module.parameters())
 
 
 def train_step_counts(image_size: int = 256, diffusion_batch_size: int = 12,
@@ -72,7 +69,7 @@ def train_step_counts(image_size: int = 256, diffusion_batch_size: int = 12,
 
         out["unet_fwd_per_sample"] = _count(lambda: unet_call(1, False))
         out["unet_fwd_bwd"] = _count(lambda: unet_call(dbs, True))
-        out["unet_params"] = _n_params(unet)
+        out["unet_params"] = count_params(unet)
         del unet
 
         eft = EpipolarFeatureTransformer(eft_config)
@@ -89,14 +86,14 @@ def train_step_counts(image_size: int = 256, diffusion_batch_size: int = 12,
                 (rgb.sum() + feat.sum()).backward()
 
             out[f"eft_fwd_bwd_nc{nc}"] = _count(eft_call)
-        out["eft_params"] = _n_params(eft)
+        out["eft_params"] = count_params(eft)
         del eft
 
         vae = AutoencoderKL(vae_config)
         with torch.no_grad():
             out["vae_encode"] = _count(lambda: vae.encode_mode(
                 torch.zeros(1, 3, image_size, image_size)))
-        out["vae_params"] = _n_params(vae)
+        out["vae_params"] = count_params(vae)
     out["adam_bytes"] = ADAM_BYTES_PER_PARAM * (out["unet_params"]
                                                 + out["eft_params"])
     return out

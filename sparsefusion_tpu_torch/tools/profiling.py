@@ -38,12 +38,14 @@ def kernel_ms(prof, n_calls: int) -> Dict[str, float]:
 
 def profile_window(run: Callable[[], None], n_calls: int,
                    reset: Optional[Callable[[], None]] = None,
-                   attempts: int = 3):
+                   attempts: int = 5):
     """torch.profiler's device activity over ``run()``, which makes
     ``n_calls`` calls: (kernel name -> device ms per call, the profile,
     host ms per call).  The window ends in a synchronise.  ``reset()``
     runs before each attempt.  A window whose profile recorded no device
-    time is taken again, up to ``attempts`` times."""
+    time is taken again, up to ``attempts`` times; each starts its calls
+    a few milliseconds after the tracer, since windows of ten launches
+    of a few microseconds each lost every record now and then."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -51,6 +53,8 @@ def profile_window(run: Callable[[], None], n_calls: int,
         if reset is not None:
             reset()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(0.005)
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()

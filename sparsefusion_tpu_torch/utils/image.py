@@ -5,6 +5,16 @@ import numpy as np
 import torch
 
 
+def normalize(x: torch.Tensor) -> torch.Tensor:
+    """[0, 1] -> [-1, 1] with clipping."""
+    return torch.clamp(x * 2.0 - 1.0, -1.0, 1.0)
+
+
+def unnormalize(x: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] -> [0, 1] with clipping."""
+    return torch.clamp((x + 1.0) / 2.0, 0.0, 1.0)
+
+
 def split_list(a, n):
     """Split a list into n nearly-equal parts."""
     k, m = divmod(len(a), n)
@@ -23,3 +33,11 @@ def to_uint8(img) -> np.ndarray:
     if isinstance(img, torch.Tensor):
         img = img.detach().cpu().numpy()
     return (np.clip(np.asarray(img), 0.0, 1.0) * 255).astype(np.uint8)
+
+
+def hwc_to_chw(x: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x).movedim(-1, -3)
+
+
+def chw_to_hwc(x: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x).movedim(-3, -1)

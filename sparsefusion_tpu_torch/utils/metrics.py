@@ -65,3 +65,12 @@ def ssim(pred: np.ndarray, gt: np.ndarray, data_range: float = 1.0,
         vals.append(s[pad:-pad, pad:-pad].mean() if pad > 0 else s.mean())
     return float(np.mean(vals))
 
+
+def get_metrics(pred: np.ndarray, gt: np.ndarray, lpips_fn=None):
+    """(ssim, psnr) of two [0, 1] images, and the ``lpips_fn`` distance
+    third when one is given."""
+    s = ssim(pred, gt, data_range=1.0)
+    p = psnr(pred, gt, data_range=1.0)
+    if lpips_fn is None:
+        return s, p
+    return s, p, float(lpips_fn(pred, gt))

@@ -15,7 +15,7 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "sparsefusion_tpu"))
-print(len(names), bad)
+print(len(names), " ".join(names), bad)
 assert not bad, bad
 """
 
@@ -25,8 +25,12 @@ def test_port_loads_no_jax_in_a_fresh_process():
                           capture_output=True, text=True, timeout=120,
                           cwd=PKG.parent)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 20
+    n_modules, *names = proc.stdout.split()[:-1]
+    assert int(n_modules) >= 20
+    # the last slice's modules among them
+    for name in ("render.mesh", "tools.make_toy_fixture",
+                 "tools.parity_sweep", "nn.layers"):
+        assert f"sparsefusion_tpu_torch.{name}" in names, name
 
 
 def test_port_sources_name_no_jax_import():
