@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke check of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels-only] [--csrc DIR]
+    python3 chip_smoke.py [--kernels-only | --k1-only] [--csrc DIR]
 
 f32 matmuls and convolutions run in full f32 throughout (``set_tf32(False)``
 first), except in the TF32 train profile of step 7.
@@ -66,7 +66,13 @@ first), except in the TF32 train profile of step 7.
    passed in) and near/far tightening at the loop's 128^3 grid, and the
    TPU preset's marching input step and subsampled fusion step inside
    that bitfield; one scene-batched input, bootstrap and fusion step
-   (S = 2, ``NGPFieldStack``) card against CPU.
+   (S = 2, ``NGPFieldStack``) card against CPU.  The fused loop (the
+   iterations as CUDA graphs, ``distill/fused.py``) against the eager
+   loop from one seed at a small size (``DistillConfig()`` with the
+   narrow UNet, and the TPU preset NGP-only), losses and fields within
+   ``FUSED_TOL``, with the eager loop against itself beside (K1's
+   backward adds with atomics); a replayed graph's draws bit-equal to
+   the eager calls' from the same generator state.
 5. The NGP-only demo at full width (``DistillConfig()``, ``NGPConfig()``,
    256 px, 100 iterations) through ``sparsefusion_tpu_torch.cli.demo.main``;
    then the TPU preset's (``--preset tpu``: 8 x C4 bf16 table, occupancy
@@ -76,16 +82,27 @@ first), except in the TF32 train profile of step 7.
    four scenes with ``--scene_batch 4`` (``distill/batched.py``): scene
    iterations a second beside the single scene's rate, K1's launches in
    Phase B equal to the single-scene run's (each for all four scenes),
-   peak memory, every scene's PSNR >= 15.
+   peak memory, every scene's PSNR >= 15.  The demos run fused, as the
+   card's default is; the single-scene NGP-only demo and the TPU
+   preset's run again eagerly (``--no_fused``), and each pair prints
+   it/s between the loop's loss reads (with and without the graphs'
+   capture seconds), the host's synchronising calls an iteration (sync
+   debug mode), a ``torch.profiler`` window's device and host ms an
+   iteration and idle share, the graphs (captures, seconds, replays)
+   and peak memory; K1's launches in each iteration equal the eager
+   run's.
 6. Main path: the full-width diffusion demo (``UNetConfig()``,
-   ``VAEConfig()``, ``EFTConfig()``, 256 px, 40 iterations, fusion after
-   iteration 20), through ``cli.demo.main`` and again through
+   ``VAEConfig()``, ``EFTConfig()``, 256 px, 40 iterations, fusion from
+   iteration 20), fused, through ``cli.demo.main`` and again through
    ``distillation_loop`` with ``DistillConfig(sampler_bf16=True)`` (30
    iterations) and with ``tpu_distill_config(occupancy_start=10,
    occupancy_update_every=8)`` (marching from iteration 10, fusion
-   gradient steps on 4096 rays).  Each
+   gradient steps on 4096 rays); the f32 demo again eagerly for 30
+   iterations and the bf16 sampler's for 25, each pair printed as in
+   step 5 (the fusion window's device ms per UNet evaluation too).  Each
    demo runs with the kernels' launch counts reset just before and read
-   just after; K2 must launch three times per UNet evaluation (every
+   just after (a replayed graph adds the launches it captured); K2 must
+   launch three times per UNet evaluation (every
    attention layer of ``UNetConfig()`` has head dim 64, which K2 has an
    instance for; a head dim without one takes the plain version), in
    bf16 for the bf16 sampler.  Then one batch-1 UNet evaluation, as the
@@ -149,6 +166,7 @@ Every check asserts or raises; the script exits non-zero without a
 result when there is no CUDA device or the port is not importable.
 """
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -1152,6 +1170,113 @@ def small_diffusion_steps_check(sampler_bf16=False):
     return stats
 
 
+FUSED_TOL = {"loss_rel": 1e-4, "param_rel": 2e-2}
+
+
+def fused_loop_card_check():
+    """The fused loop (CUDA graphs) against the eager loop on the card,
+    from one seed, at a small size: ``DistillConfig()`` at 32 px (3
+    bootstrap and 7 fusion iterations, 4 PLMS steps, the narrow UNet with
+    64-wide heads) and the TPU preset NGP-only (occupancy from iteration
+    2, marching, 128-ray input steps).  Their losses and final fields
+    agree within ``FUSED_TOL``, not bit for bit: K1's backward adds with
+    f32 atomics, in another order in every run, and the two-phase
+    renderer and Adam's first steps magnify the differences; the eager
+    loop against itself gives the spread printed beside.  Then the
+    draws: a replayed graph of the renderer's, the ray subset's and the
+    sampler's draws gives the numbers the eager calls give from the same
+    generator state, bit for bit, at every replay."""
+    import copy
+
+    from sparsefusion_tpu_torch.data.synthetic import make_synthetic_scene
+    from sparsefusion_tpu_torch.distill import loop
+    from sparsefusion_tpu_torch.distill.fused import GraphRunner
+    from sparsefusion_tpu_torch.render import volume
+
+    dev = torch.device("cuda")
+    models_cpu = _small_models(np.random.RandomState(0))
+    scene = make_synthetic_scene(n_views=3, image_size=32, seed=0)
+    small = dict(max_itr=10, start_fusion_step=2, n_aug_cameras=2,
+                 plms_steps=4, max_ray_batch=256)
+    cases = {
+        "reference": (True, loop.DistillConfig(**small)),
+        "tpu_preset": (False, loop.tpu_distill_config(
+            occupancy_start=2, occupancy_update_every=3, input_rays=128,
+            fusion_rays=128, **small)),
+    }
+    out = {}
+    for name, (use_diffusion, cfg) in cases.items():
+        runs = {}
+        for run, fused in (("fused", None), ("eager", False),
+                           ("eager_again", False)):
+            models = copy.deepcopy(models_cpu)
+            for m in (models.eft, models.vae, models.unet):
+                m.to(dev)
+            r = loop.distillation_loop(
+                models, scene, [0, 1],
+                dataclasses.replace(cfg, fused_steps=fused),
+                torch.Generator(device=dev).manual_seed(3),
+                use_diffusion=use_diffusion, verbose=False)
+            assert (r["fused"] is not None) == (fused is None), r["fused"]
+            runs[run] = r
+
+        def diff(a, b):
+            la, lb = np.asarray(a["losses"] + a["fusion_losses"]), \
+                np.asarray(b["losses"] + b["fusion_losses"])
+            loss = float(np.max(np.abs(la - lb) / np.abs(lb)))
+            par = max(float(np.linalg.norm(np.asarray(x) - np.asarray(y))
+                            / np.linalg.norm(np.asarray(y)))
+                      for x, y in zip(_leaves(a["ngp_params"]),
+                                      _leaves(b["ngp_params"])))
+            return {"loss_rel": loss, "param_rel": par}
+
+        f = runs["fused"]
+        out[name] = {"fused_vs_eager": diff(f, runs["eager"]),
+                     "eager_vs_eager": diff(runs["eager_again"],
+                                            runs["eager"]),
+                     "graphs": _graph_stats(f),
+                     "unet_evals": [r["unet_evals"] for r in runs.values()]}
+        print(f"fused loop vs eager loop on the card ({name}): "
+              + json.dumps(out[name]))
+        assert all(np.isfinite(r["losses"]).all() for r in runs.values())
+        assert len(set(out[name]["unet_evals"])) == 1, out[name]
+        for key, tol in FUSED_TOL.items():
+            assert out[name]["fused_vs_eager"][key] <= tol, (name, key)
+
+    # a replayed graph draws what the eager calls draw
+    shapes = [(4096, 64), (4096, 64)]
+    gens = [torch.Generator(device=dev).manual_seed(11) for _ in range(2)]
+    bufs = [torch.zeros(sh, device=dev) for sh in shapes] + [
+        torch.zeros(128, dtype=torch.int64, device=dev),
+        torch.zeros((1, 4, 32, 32), device=dev)]
+
+    def draw(g):
+        vals = [volume._draw(sh, None, g, dev) for sh in shapes]
+        vals.append(torch.randint(0, 16384, (128,), generator=g, device=dev))
+        vals.append(torch.randn((1, 4, 32, 32), generator=g, device=dev))
+        return vals
+
+    def program():
+        for buf, v in zip(bufs, draw(gens[0])):
+            buf.copy_(v)
+
+    runner = GraphRunner(dev, gens[0], [])
+    for i in range(4):              # eager, capture + replay, replays
+        runner.run(("draws",), program, i)
+        want = draw(gens[1])
+        assert all(torch.equal(b, w) for b, w in zip(bufs, want)), i
+    assert runner.warmups == 1 and len(runner.captures) == 1 \
+        and runner.replays == 3, (runner.warmups, runner.replays)
+    print("replayed draws equal the eager draws at 3 replays (bit for bit)")
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
 def unet_eval_profile(n_evals=PROFILE_ITERS):
     """One batch-1 evaluation of the full-width UNet as the sampler makes
     it (a 32 x 32 latent, 256 feature channels, no grad) in f32, in TF32
@@ -1216,9 +1341,187 @@ def unet_eval_profile(n_evals=PROFILE_ITERS):
     return stats
 
 
+# the loss reads of the loop (``loss_fetch_every`` 20): iterations
+# 19, 39, ...; "-1" is the loop's start
+FETCH = 20
+
+
+def _rates(r, bounds, overhead=None):
+    """it/s of a loop's result between its loss reads: for each name,
+    iterations a + 1 .. b of ``bounds``' (a, b), the host seconds from the
+    read at a (a = -1: the loop's start) to the read at b, less the
+    measurement's own seconds in them (``overhead``: {iteration:
+    seconds}), and the same without the CUDA-graph captures made in that
+    span."""
+    at = dict(r["sync_times"])
+    at[-1] = r["loop_start"]
+    captures = (r.get("fused") or {}).get("captures", [])
+    out = {}
+    for name, (a, b) in bounds.items():
+        sec = at[b] - at[a] - sum(s for i, s in (overhead or {}).items()
+                                  if a < i <= b)
+        cap = sum(c["seconds"] for c in captures if a < c["itr"] <= b)
+        out[name] = {"iterations": b - a, "s": sec, "it_per_s": (b - a) / sec,
+                     "capture_s": cap,
+                     "it_per_s_without_captures": (b - a) / (sec - cap)}
+    return out
+
+
+def _graph_stats(r):
+    """The fused programs' graphs of a loop's result: captures, their
+    seconds, replays, eager warm-ups (None for the eager loop)."""
+    f = r["fused"]
+    if f is None:
+        return None
+    assert f["graphs"], f
+    return {"captures": len(f["captures"]),
+            "capture_s": sum(c["seconds"] for c in f["captures"]),
+            "replays": f["replays"], "warmups": f["warmups"],
+            "keys": sorted({c["key"] for c in f["captures"]})}
+
+
+class _LoopProbe:
+    """Phase B of the demo runs inside it, measured through
+    ``distillation_loop``'s iteration hook (the CLI's calls included):
+    the host's synchronising CUDA calls (``torch.cuda``'s sync debug mode,
+    each warning counted) and the K1 launches up to each iteration's end;
+    and for each of ``windows``' (a, b), a ``torch.profiler`` window over
+    iterations a + 1 .. b, from a synchronise at the end of a to one at
+    the end of b: the device's busy ms (its kernels' and copies' time)
+    and the idle share 1 - busy / host ms.  The hook's own synchronises
+    run with the debug mode off."""
+
+    def __init__(self, windows):
+        self.windows = windows
+        self.syncs_at, self.k1_at, self.k2_at, self.window = {}, {}, {}, {}
+        self.hook_s = {}     # the profiler's own seconds at each iteration
+        self._n, self._prof = 0, None
+
+    def __enter__(self):
+        import warnings
+
+        from sparsefusion_tpu_torch.distill import loop
+
+        self._loop, self._fn = loop, loop.distillation_loop
+
+        def distillation_loop(*args, **kw):
+            kw.setdefault("iteration_hook", self.hook)
+            return self._fn(*args, **kw)
+
+        loop.distillation_loop = distillation_loop
+        self._catch = warnings.catch_warnings(record=True)
+        self._log = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        self._catch.__exit__(*exc)
+        self._loop.distillation_loop = self._fn
+        if self._prof is not None:
+            self._prof.stop()
+        return False
+
+    def hook(self, itr):
+        from torch.profiler import ProfilerActivity, profile
+
+        from sparsefusion_tpu_torch.kernels import attention, grid_encode
+
+        torch.cuda.set_sync_debug_mode(0)
+        self._n += sum("synchroniz" in str(w.message) for w in self._log)
+        del self._log[:]
+        self.syncs_at[itr] = self._n
+        self.k1_at[itr] = (grid_encode.grid_encode_cuda.launches,
+                           grid_encode.grid_encode_cuda_backward.launches)
+        self.k2_at[itr] = attention.imagen_attention_cuda.launches
+        # the profiler's start and its reading are the measurement's own
+        # time, not the loop's (the synchronises only wait for the loop)
+        overhead = 0.0
+        for name, (a, b) in self.windows.items():
+            if itr == a:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                self._prof = profile(activities=[ProfilerActivity.CUDA])
+                self._prof.start()
+                time.sleep(0.005)
+                overhead += time.perf_counter() - t0
+                torch.cuda.synchronize()
+                self._t = time.perf_counter()
+            elif itr == b:
+                torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - self._t) * 1e3
+                t0 = time.perf_counter()
+                self._prof.stop()
+                busy, kernels = 0.0, 0
+                for e in self._prof.key_averages():
+                    us = getattr(e, "self_device_time_total", 0) or 0
+                    if us > 0:
+                        busy += us / 1e3
+                        kernels += e.count
+                self._prof = None
+                overhead += time.perf_counter() - t0
+                n = b - a
+                # K2 launches three times a UNet evaluation
+                evals = (self.k2_at[b] - self.k2_at[a]) / 3
+                self.window[name] = {
+                    "iterations": n, "host_ms_per_itr": host_ms / n,
+                    "device_ms_per_itr": busy / n,
+                    "kernels_per_itr": kernels / n,
+                    "idle_share": (1 - busy / host_ms) if busy > 0
+                    else None,
+                    "unet_evals": evals,
+                    "device_ms_per_unet_eval": busy / evals if evals
+                    else None}
+        self.hook_s[itr] = overhead
+        torch.cuda.set_sync_debug_mode("warn")
+
+    def syncs_per_itr(self, a, b):
+        """Synchronising calls an iteration over iterations a + 1 .. b."""
+        return (self.syncs_at[b] - self.syncs_at[a]) / (b - a)
+
+    def k1_deltas(self):
+        """{iteration: (K1 forward, backward) launches in it}."""
+        itrs = sorted(self.k1_at)
+        return {i: tuple(x - y for x, y in zip(self.k1_at[i],
+                                               self.k1_at[p]))
+                for p, i in zip(itrs, itrs[1:])}
+
+
+def _probe_stats(r, probe, bounds, peak):
+    """The fused-or-eager loop's measurements of one run: it/s between
+    loss reads, syncs an iteration and the profiled windows, graphs,
+    peak memory (allocated, reserved; GiB)."""
+    return {"fused": r["fused"] is not None,
+            "rates": _rates(r, bounds, probe.hook_s),
+            "syncs_per_itr": {name: probe.syncs_per_itr(a, b)
+                              for name, (a, b) in probe.windows.items()},
+            "windows": probe.window, "graphs": _graph_stats(r),
+            "peak_gib": peak,
+            # the profiler's own seconds, left out of the rates
+            "probe_s": sum(probe.hook_s.values())}
+
+
+def _peak():
+    return [torch.cuda.max_memory_allocated() / 2 ** 30,
+            torch.cuda.max_memory_reserved() / 2 ** 30]
+
+
+def _compare_pair(label, fused, eager):
+    """One line per demo pair, and K1's launches an iteration equal in the
+    iterations both ran."""
+    fd, ed = fused.pop("k1_deltas"), eager.pop("k1_deltas")
+    common = sorted(set(fd) & set(ed))
+    assert common and all(fd[i] == ed[i] for i in common), [
+        (i, fd[i], ed[i]) for i in common if fd[i] != ed[i]]
+    print(f"fused vs eager, {label}: " + json.dumps(
+        {"fused": fused, "eager": eager,
+         "k1_launches_equal_over_itrs": [common[0], common[-1]]}))
+
+
 DEMO_ARGV = ["-d", "synthetic", "-c", "any", "-i", "0", "-v", "2",
              "--image_size", "256", "--max_itr", "40", "--start_fusion",
-             "20", "--device", "cuda"]
+             "19", "--device", "cuda"]
 
 
 # the TPU preset's diffusion run: occupancy from iteration 10, marching
@@ -1226,92 +1529,120 @@ DEMO_ARGV = ["-d", "synthetic", "-c", "any", "-i", "0", "-v", "2",
 TPU_DIFFUSION_KW = dict(occupancy_start=10, occupancy_update_every=8)
 
 
-def _loop_demo(argv, variant):
+_TRIOS = {}
+
+
+def _shared_trio(args, device):
+    """``cli/demo.py::build_trio``, built once for all the smoke's
+    diffusion demos: without checkpoints every demo's weights are seed
+    0's, so they share one bundle (each run reads its UNet evaluations as
+    a difference)."""
+    from sparsefusion_tpu_torch.cli import demo
+
+    key = (args.eft_ckpt, args.vae_ckpt, args.vldm_ckpt, args.resnet18,
+           str(device))
+    if key not in _TRIOS:
+        t0 = time.perf_counter()
+        _TRIOS[key] = _BUILD_TRIO(args, device)
+        print(f"the EFT / VAE / UNet trio built in "
+              f"{time.perf_counter() - t0:.1f} s (kept for every demo)")
+    return _TRIOS[key]
+
+
+def _loop_demo(argv, variant, fused=True):
     """The demo's scene loop through ``distillation_loop`` with the CLI's
     models, scene, views and generator, and ``DistillConfig(sampler_bf16=
     True)`` (``variant`` "bf16_sampler"; the JAX demo CLI has no flag for
-    it) or ``tpu_distill_config(**TPU_DIFFUSION_KW)`` ("tpu")."""
+    it) or ``tpu_distill_config(**TPU_DIFFUSION_KW)`` ("tpu"); without
+    ``fused``, ``fused_steps=False``."""
     from sparsefusion_tpu_torch.cli.demo import (
-        build_trio,
         load_dataset,
         parse_args,
         select_input_views,
     )
-    from sparsefusion_tpu_torch.distill.loop import (
-        DistillConfig,
-        distillation_loop,
-        tpu_distill_config,
-    )
+    from sparsefusion_tpu_torch.distill import loop
 
     args = parse_args(argv)
     exp_dir = args.exp_dir
     for sub in ("log", "metrics", "render_imgs", "render_gifs"):
         os.makedirs(os.path.join(exp_dir, sub), exist_ok=True)
     device = torch.device("cuda")
-    models = build_trio(args, device)
+    models = _shared_trio(args, device)
     scene = load_dataset(args, device)[0]
     input_idx = select_input_views(args.val_seed, 0, len(scene),
                                    args.context_views)
     scene.sequence_name = f"any_000_c{len(input_idx)}"
+    kw = dict(max_itr=args.max_itr, start_fusion_step=args.start_fusion,
+              fused_steps=None if fused else False)
     if variant == "tpu":
-        cfg = tpu_distill_config(max_itr=args.max_itr,
-                                 start_fusion_step=args.start_fusion,
-                                 **TPU_DIFFUSION_KW)
+        cfg = loop.tpu_distill_config(**kw, **TPU_DIFFUSION_KW)
     else:
-        cfg = DistillConfig(max_itr=args.max_itr,
-                            start_fusion_step=args.start_fusion,
-                            sampler_bf16=True)
+        cfg = loop.DistillConfig(sampler_bf16=True, **kw)
     generator = torch.Generator(device=device).manual_seed(args.val_seed)
-    return [distillation_loop(models, scene, input_idx, cfg, generator,
-                              save_dir=exp_dir)]
+    return [loop.distillation_loop(models, scene, input_idx, cfg, generator,
+                                   save_dir=exp_dir)]
 
 
-def diffusion_main_path(variant="f32", max_itr=40, lpips_spec=None):
-    """The full-width diffusion demo, ``max_itr`` iterations, fusion after
-    20: through ``cli/demo.py::main`` (``variant`` "f32", and "lpips" with
-    ``--lpips_weights lpips_spec``: the perceptual term and the eval's
-    column), or through ``distillation_loop`` with the bf16 sampler
-    ("bf16_sampler") or the TPU preset ("tpu": occupancy from iteration
-    10, single-pass marching, 4096-ray input and fusion gradient
-    steps)."""
+def _diffusion_windows(max_itr):
+    """Profiled windows of a diffusion demo (fusion from iteration 20):
+    bootstrap iterations 10-17, and three fusion iterations before the
+    last (the profiler's reading of ~50,000 kernels an iteration takes
+    seconds)."""
+    return {"bootstrap": (9, 17),
+            "fusion": (max(20, max_itr - 5), max_itr - 2)}
+
+
+def diffusion_main_path(variant="f32", max_itr=40, lpips_spec=None,
+                        fused=True):
+    """The full-width diffusion demo, ``max_itr`` iterations, fusion from
+    iteration 20: through ``cli/demo.py::main`` (``variant`` "f32", and
+    "lpips" with ``--lpips_weights lpips_spec``: the perceptual term and
+    the eval's column), or through ``distillation_loop`` with the bf16
+    sampler ("bf16_sampler") or the TPU preset ("tpu": occupancy from
+    iteration 10, single-pass marching, 4096-ray input and fusion
+    gradient steps).  ``fused``: the card's default, the iterations as
+    CUDA graphs; else the eager loop (``--no_fused``)."""
     from sparsefusion_tpu_torch.cli.demo import main as demo_main
 
     sampler_bf16 = variant == "bf16_sampler"
+    windows = _diffusion_windows(max_itr)
     with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_") as exp_dir, \
-            _PhaseB() as phase_b:
+            _PhaseB() as phase_b, _LoopProbe(windows) as probe:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         t0 = time.perf_counter()
         argv = DEMO_ARGV + ["--max_itr", str(max_itr), "--exp_dir", exp_dir]
         if variant == "f32":
-            results = demo_main(argv)
+            results = demo_main(argv + ([] if fused else ["--no_fused"]))
         elif variant == "lpips":
             results = demo_main(argv + ["--lpips_weights", lpips_spec])
         else:
-            results = _loop_demo(argv, variant)
+            results = _loop_demo(argv, variant, fused)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _read_counts()
-        peak = torch.cuda.max_memory_allocated()
+        peak = _peak()
         written = {p: os.path.exists(os.path.join(exp_dir, p)) for p in (
             "metrics/any_000_c2.txt", "any_000_c2_ngp.npz",
             "render_gifs/any_000_c2.gif")}
 
     r = results[0]
-    t = np.asarray(r["iter_times"])
-    n_fusion = max_itr - 21                 # iterations 21..max_itr - 1
-    boot_its = 20 / (t[20] - t[0])          # iterations 1..20
-    fusion_s = t[max_itr - 1] - t[20]
+    n_fusion = max_itr - 20                 # iterations 20..max_itr - 1
+    last = max_itr - 1
+    loop_stats = _probe_stats(r, probe, {"bootstrap": (-1, FETCH - 1),
+                                         "fusion": (FETCH - 1, last)}, peak)
+    rates = loop_stats["rates"]
+    fusion_s = rates["fusion"]["s"]
     stats = {"phase_a_s": r["cache_seconds"],
-             "it_per_s": (max_itr - 1) / (t[max_itr - 1] - t[0]),
-             "bootstrap_it_per_s": boot_its,
-             "fusion_it_per_s": n_fusion / fusion_s,
+             "it_per_s": max_itr / (rates["bootstrap"]["s"] + fusion_s),
+             "bootstrap_it_per_s": rates["bootstrap"]["it_per_s"],
+             "fusion_it_per_s": rates["fusion"]["it_per_s"],
              "unet_evals": r["unet_evals"],
              "unet_evals_per_s": r["unet_evals"] / fusion_s,
-             "peak_gib": peak / 2 ** 30, "wall_s": wall,
+             "peak_gib": peak[0], "wall_s": wall,
              "psnr": r["metrics"]["psnr"], "ssim": r["metrics"]["ssim"],
-             "phase_b_launches": phase_b.k1()}
+             "phase_b_launches": phase_b.k1(), "loop": loop_stats}
     if variant == "lpips":
         stats["lpips"] = r["metrics"]["lpips"]
     occ, modes = r["occupancy"], r["render_modes"]
@@ -1324,7 +1655,8 @@ def diffusion_main_path(variant="f32", max_itr=40, lpips_spec=None):
     label = "diffusion main path" + {"f32": "", "bf16_sampler":
                                      " (bf16 sampler)",
                                      "tpu": " (TPU preset)",
-                                     "lpips": " (LPIPS)"}[variant]
+                                     "lpips": " (LPIPS)"}[variant] \
+        + ("" if fused else " (eager)")
     print(f"{label}: " + json.dumps(stats))
     print(f"{label}: launches {json.dumps(launches)}; "
           f"files {json.dumps(written)}")
@@ -1337,14 +1669,20 @@ def diffusion_main_path(variant="f32", max_itr=40, lpips_spec=None):
     assert np.isfinite(r["renders"]).all()
     assert launches["grid_encode_fwd"] > 0 and launches["grid_encode_bwd"] > 0
     assert r["unet_evals"] > 0
-    # three attention layers a forward, all at a kernel head dim (64)
+    # three attention layers a forward, all at a kernel head dim (64);
+    # with graphs, both counts add each replay's captured launches
     assert launches["imagen_attention"] == 3 * r["unet_evals"], launches
     assert launches["imagen_attention_bf16"] == (
         launches["imagen_attention"] if sampler_bf16 else 0), launches
+    # the card runs fused by default; --no_fused is the eager loop
+    assert (r["fused"] is not None) == fused, r["fused"]
+    if fused:
+        graphs = loop_stats["graphs"]
+        assert graphs["captures"] > 0 and graphs["replays"] > 0, graphs
     if variant == "tpu":
         # marching from the first grid update on (the preset sets no
         # polish tail), and the fusion gradient steps on ray subsets
-        # (iterations 21..max_itr - 1)
+        # (iterations 20..max_itr - 1)
         start = TPU_DIFFUSION_KW["occupancy_start"]
         assert occ["update_itrs"] == list(range(
             start, max_itr, TPU_DIFFUSION_KW["occupancy_update_every"])), occ
@@ -1357,73 +1695,87 @@ def diffusion_main_path(variant="f32", max_itr=40, lpips_spec=None):
         assert r["fusion_subset_steps"] == 0
     if variant == "lpips":
         assert math.isfinite(r["metrics"]["lpips"]), r["metrics"]
+    loop_stats["k1_deltas"] = probe.k1_deltas()
     return launches, stats
 
 
-def tpu_ngp_main_path():
+def tpu_ngp_main_path(fused=True, max_itr=600):
     """The TPU preset's NGP-only demo at full width through the CLI
-    (``--preset tpu --no_diffusion``, 256 px, 600 iterations: occupancy
-    from iteration 500, so 7 grid updates and 100 marching iterations).
+    (``--preset tpu --no_diffusion``, 256 px, ``max_itr`` iterations:
+    occupancy from iteration 500, so with 600 7 grid updates and 100
+    marching iterations; ``fused`` as in :func:`diffusion_main_path`).
     K1's 8 x C4 bf16 instance must carry every forward launch."""
     from sparsefusion_tpu_torch.cli.demo import main as demo_main
 
+    windows = {"two_phase": (299, 319), "march": (581, 595)}
+    windows = {k: v for k, v in windows.items() if v[1] < max_itr}
     with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_") as exp_dir, \
-            _PhaseB() as phase_b:
+            _PhaseB() as phase_b, _LoopProbe(windows) as probe:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         t0 = time.perf_counter()
         results = demo_main([
             "-d", "synthetic", "-c", "any", "-i", "0", "-v", "2",
-            "--image_size", "256", "--max_itr", "600", "--no_diffusion",
-            "--preset", "tpu", "--device", "cuda", "--exp_dir", exp_dir])
+            "--image_size", "256", "--max_itr", str(max_itr),
+            "--no_diffusion", "--preset", "tpu", "--device", "cuda",
+            "--exp_dir", exp_dir] + ([] if fused else ["--no_fused"]))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _read_counts()
-        peak = torch.cuda.max_memory_allocated()
+        peak = _peak()
         files_ok = os.path.exists(os.path.join(exp_dir, "metrics",
                                                "any_000_c2.txt"))
 
     r = results[0]
     losses = np.asarray(r["losses"])
-    t = np.asarray(r["iter_times"])
     occ = r["occupancy"]
-    start = occ["update_itrs"][0] if occ["update_itrs"] else len(t)
-    # grid updates inside the marching window (iterations start+1 ..)
+    start = 500
+    last = max_itr - 1
+    loop_stats = _probe_stats(r, probe, {"two_phase": (FETCH - 1, start - 1),
+                                         "march": (start - 1, last)}, peak)
+    rates = loop_stats["rates"]
+    # grid updates inside the marching span (iterations start+1 ..)
     upd_after = sum(s for i, s in zip(occ["update_itrs"],
                                       occ["update_seconds"]) if i > start)
     stats = {
-        "it_per_s": (len(t) - 1) / (t[-1] - t[0]),
-        "it_per_s_two_phase": (start - 1) / (t[start - 1] - t[0]),
-        "it_per_s_march": (len(t) - 1 - start) / (t[-1] - t[start]),
+        "it_per_s": (last - FETCH + 1) / (rates["two_phase"]["s"]
+                                          + rates["march"]["s"]),
+        "it_per_s_two_phase": rates["two_phase"]["it_per_s"],
+        "it_per_s_march": rates["march"]["it_per_s"],
         "it_per_s_march_without_grid_updates":
-            (len(t) - 1 - start) / (t[-1] - t[start] - upd_after),
+            rates["march"]["iterations"] / (rates["march"]["s"] - upd_after),
         "grid_update_itrs": occ["update_itrs"],
         "grid_update_s": occ["update_seconds"],
         "occupied_share": occ["occupied_share"],
-        "render_modes": r["render_modes"], "peak_gib": peak / 2 ** 30,
+        "render_modes": r["render_modes"], "peak_gib": peak[0],
         "wall_s": wall, "psnr": r["metrics"]["psnr"],
         "ssim": r["metrics"]["ssim"],
         "loss_first10": float(losses[:10].mean()),
         "loss_last10": float(losses[-10:].mean()),
-        "phase_b_launches": phase_b.k1()}
-    print("TPU preset NGP-only main path: " + json.dumps(stats))
-    print(f"TPU preset NGP-only main path: launches {json.dumps(launches)}")
-    assert len(losses) == 600 and np.isfinite(losses).all()
+        "phase_b_launches": phase_b.k1(), "loop": loop_stats}
+    label = "TPU preset NGP-only main path" + ("" if fused else " (eager)")
+    print(f"{label}: " + json.dumps(stats))
+    print(f"{label}: launches {json.dumps(launches)}")
+    assert len(losses) == max_itr and np.isfinite(losses).all()
     assert stats["psnr"] >= 15.0, f"eval psnr {stats['psnr']} < 15"
-    assert len(occ["update_itrs"]) >= 1 and occ["update_itrs"][0] == 500
+    assert len(occ["update_itrs"]) >= 1 and occ["update_itrs"][0] == start
     assert 0.0 < occ["occupied_share"][0] < 1.0, occ["occupied_share"]
     # marching from the first grid update (iteration 500) on
-    assert r["render_modes"] == {"two_phase": 500, "march": 100}, \
-        r["render_modes"]
+    assert r["render_modes"] == {"two_phase": start,
+                                 "march": max_itr - start}, r["render_modes"]
     assert launches["grid_encode_fwd_bf16"] > 0
     assert launches["grid_encode_fwd_bf16"] == launches["grid_encode_fwd"]
     assert launches["grid_encode_bwd"] > 0
     assert files_ok and np.isfinite(r["renders"]).all()
+    assert (r["fused"] is not None) == fused, r["fused"]
+    loop_stats["k1_deltas"] = probe.k1_deltas()
     return launches, stats, r["ngp_params"]
 
 
-def main_path():
+def main_path(fused=True):
+    """The NGP-only demo at full width through the CLI, 100 iterations
+    (``fused`` as in :func:`diffusion_main_path`)."""
     from sparsefusion_tpu_torch.cli.demo import main as demo_main
     from sparsefusion_tpu_torch.kernels.grid_encode import (
         grid_encode_cuda,
@@ -1432,7 +1784,7 @@ def main_path():
     )
 
     with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_") as exp_dir, \
-            _PhaseB() as phase_b:
+            _PhaseB() as phase_b, _LoopProbe({"steady": (59, 79)}) as probe:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -1440,12 +1792,13 @@ def main_path():
         results = demo_main([
             "-d", "synthetic", "-c", "any", "-i", "0", "-v", "2",
             "--image_size", "256", "--max_itr", "100", "--no_diffusion",
-            "--device", "cuda", "--exp_dir", exp_dir])
+            "--device", "cuda", "--exp_dir", exp_dir]
+            + ([] if fused else ["--no_fused"]))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"grid_encode_fwd": grid_encode_cuda.launches,
                     "grid_encode_bwd": grid_encode_cuda_backward.launches}
-        peak = torch.cuda.max_memory_allocated()
+        peak = _peak()
         metrics_file = os.path.join(exp_dir, "metrics", "any_000_c2.txt")
         npz_file = os.path.join(exp_dir, "any_000_c2_ngp.npz")
         files_ok = os.path.exists(metrics_file) and os.path.exists(npz_file)
@@ -1453,16 +1806,17 @@ def main_path():
 
     r = results[0]
     losses = np.asarray(r["losses"])
-    it = np.asarray(r["iter_times"])
-    its = (len(it) - 1) / (it[-1] - it[0])
+    loop_stats = _probe_stats(r, probe, {"steady": (FETCH - 1, 99)}, peak)
+    its = loop_stats["rates"]["steady"]["it_per_s"]
     psnr = r["metrics"]["psnr"]
-    print(f"main path: {len(losses)} iterations, {its:.3f} it/s "
-          f"(iterations 2-100), wall {wall:.2f} s incl. scene synthesis "
-          f"and eval; peak memory {peak / 2 ** 30:.3f} GiB; launches "
+    label = "main path" + ("" if fused else " (eager)")
+    print(f"{label}: {len(losses)} iterations, {its:.3f} it/s "
+          f"(iterations 20-100), wall {wall:.2f} s incl. scene synthesis "
+          f"and eval; peak memory {peak[0]:.3f} GiB; launches "
           f"{json.dumps(launches)}")
-    print(f"main path: loss first10 {losses[:10].mean():.5f} last10 "
+    print(f"{label}: loss first10 {losses[:10].mean():.5f} last10 "
           f"{losses[-10:].mean():.5f}; eval psnr {psnr:.3f} "
-          f"ssim {r['metrics']['ssim']:.4f}")
+          f"ssim {r['metrics']['ssim']:.4f}; loop {json.dumps(loop_stats)}")
     assert all(v > 0 for v in launches.values()), launches
     assert len(losses) == 100 and np.isfinite(losses).all()
     assert losses[-10:].mean() < losses[:10].mean(), "loss did not fall"
@@ -1472,9 +1826,12 @@ def main_path():
         np.isfinite(v).all() for v in npz.values())
     assert r["renders"].shape == (10, 256, 256, 3)
     assert np.isfinite(r["renders"]).all()
-    return launches, {"it_per_s": its, "peak_gib": peak / 2 ** 30,
+    assert (r["fused"] is not None) == fused, r["fused"]
+    loop_stats["k1_deltas"] = probe.k1_deltas()
+    return launches, {"it_per_s": its, "peak_gib": peak[0],
                       "wall_s": wall, "psnr": psnr,
-                      "phase_b_launches": phase_b.k1()}, r["ngp_params"]
+                      "phase_b_launches": phase_b.k1(),
+                      "loop": loop_stats}, r["ngp_params"]
 
 
 class _PhaseB:
@@ -1712,7 +2069,7 @@ BATCH_ARGV = ["-d", "synthetic", "-c", "any",
 # per kind: the arguments, and the single-scene run it is held against
 BATCH_RUNS = {
     "ngp": ["--max_itr", "100", "--no_diffusion"],
-    "diffusion": ["--max_itr", "40", "--start_fusion", "20"],
+    "diffusion": ["--max_itr", "40", "--start_fusion", "19"],
     "tpu": ["--max_itr", "600", "--no_diffusion", "--preset", "tpu"],
 }
 
@@ -1721,7 +2078,7 @@ def batched_main_path(kind, single):
     """SCENES synthetic scenes through the CLI with ``--scene_batch
     SCENES``: one bucket, so one lockstep group (``distill/batched.py``).
     ``kind`` "ngp" (``DistillConfig()``, 100 iterations), "diffusion" (40,
-    fusion after 20) or "tpu" (``--preset tpu --no_diffusion``, 600: the
+    fusion from 20) or "tpu" (``--preset tpu --no_diffusion``, 600: the
     batched occupancy grids and marching).  ``single`` is the stats of
     the same configuration's single-scene run in this smoke: K1 must
     launch as often in the batched Phase B as there, each launch for all
@@ -1746,10 +2103,14 @@ def batched_main_path(kind, single):
 
     assert len(results) == SCENES
     r = results[0]
-    t = np.asarray(r["iter_times"])
-    max_itr = len(t)
+    max_itr = len(r["iter_times"])
     k1 = phase_b.k1()
-    stats = {"scene_it_per_s": SCENES * (max_itr - 1) / (t[-1] - t[0]),
+    # iterations 20.. (NGP-only), or all (diffusion), as the single runs'
+    rates = _rates(r, {"all": (-1 if kind == "diffusion" else FETCH - 1,
+                               max_itr - 1),
+                       "bootstrap": (-1, FETCH - 1),
+                       "fusion": (FETCH - 1, max_itr - 1)})
+    stats = {"scene_it_per_s": SCENES * rates["all"]["it_per_s"],
              "single_scene_it_per_s": single["it_per_s"],
              "k1_fwd_launches_per_itr": k1["grid_encode_fwd"] / max_itr,
              "k1_bwd_launches_per_itr": k1["grid_encode_bwd"] / max_itr,
@@ -1760,12 +2121,11 @@ def batched_main_path(kind, single):
              "ssim": [x["metrics"]["ssim"] for x in results],
              "phase_b_launches": k1}
     if kind == "diffusion":
-        n_fusion = max_itr - 21
-        fusion_s = t[max_itr - 1] - t[20]
         stats.update({
-            "scene_fusion_it_per_s": SCENES * n_fusion / fusion_s,
+            "scene_fusion_it_per_s": SCENES * rates["fusion"]["it_per_s"],
             "single_scene_fusion_it_per_s": single["fusion_it_per_s"],
-            "scene_bootstrap_it_per_s": SCENES * 20 / (t[20] - t[0]),
+            "scene_bootstrap_it_per_s":
+                SCENES * rates["bootstrap"]["it_per_s"],
             "single_scene_bootstrap_it_per_s": single["bootstrap_it_per_s"],
             "unet_evals": r["unet_evals"], "phase_a_s": r["cache_seconds"],
             "unet_batches": sorted(set(phase_b.unet_batches))})
@@ -2668,6 +3028,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernel phase (steps 1-3)")
+    parser.add_argument("--k1-only", action="store_true",
+                        help="stop after K1's single-scene kernel phase and "
+                             "the input step's profile (with --csrc, an "
+                             "older grid_encode.cu given today's C entries)")
     parser.add_argument("--csrc", default=None,
                         help="build the kernels from this directory of "
                              "sources instead of the package's csrc/ (the "
@@ -2677,9 +3041,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from sparsefusion_tpu_torch.cli import demo
     from sparsefusion_tpu_torch.kernels import _build
     from sparsefusion_tpu_torch.utils.precision import set_tf32
 
+    global _BUILD_TRIO
+    _BUILD_TRIO, demo.build_trio = demo.build_trio, _shared_trio
     set_tf32(False)
     if args.csrc is not None:
         _build.CSRC = pathlib.Path(args.csrc).resolve()
@@ -2702,6 +3069,11 @@ def main(argv=None) -> int:
 
     _mark("build")
     errs, times = kernel_phase()
+    if args.k1_only:
+        step_stats = input_step_profile()["reference"]
+        print(json.dumps({"kernel_times": times, "max_abs_err": errs,
+                          "input_step": step_stats}))
+        return 0
     scene_times = scene_kernel_phase()
     _mark("K1 kernel phase")
     attn_err, attn_times, _ = attention_phase(torch.float32)
@@ -2732,11 +3104,18 @@ def main(argv=None) -> int:
     small_diffusion_steps_check(sampler_bf16=True)
     small_batched_steps_check()
     _mark("steps card vs CPU")
+    fused_check = fused_loop_card_check()
+    _mark("fused loop vs eager loop")
     small_occupancy_steps_check(occupancy_card_check())
     _mark("occupancy card vs CPU")
     ngp_launches, ngp_stats, ngp_params = main_path()
+    _, ngp_eager, _ = main_path(fused=False)
+    _compare_pair("NGP-only demo", ngp_stats["loop"], ngp_eager["loop"])
     tpu_ngp_launches, tpu_ngp_stats, tpu_ngp_params = tpu_ngp_main_path()
-    _mark("NGP-only demos")
+    _, tpu_ngp_eager, _ = tpu_ngp_main_path(fused=False)
+    _compare_pair("TPU preset NGP-only demo", tpu_ngp_stats["loop"],
+                  tpu_ngp_eager["loop"])
+    _mark("NGP-only demos, fused and eager")
     # per kind: the whole run's launches, and K1's in Phase B (every one
     # of them scene-batched)
     batch_launches, batch_k1 = {}, {}
@@ -2746,12 +3125,21 @@ def main(argv=None) -> int:
         "tpu", tpu_ngp_stats)
     _mark("scene-batched NGP-only demos")
     launches, diffusion_stats = diffusion_main_path()
-    # 30 iterations: 9 fusion iterations where the others run 19, which
+    # the eager twins at less depth: 10 and 5 fusion iterations
+    _, diffusion_eager = diffusion_main_path(max_itr=30, fused=False)
+    _compare_pair("f32 diffusion demo", diffusion_stats["loop"],
+                  diffusion_eager["loop"])
+    # 30 iterations: 10 fusion iterations where the others run 20, which
     # keeps the whole run within the time it took before the TPU preset's
     # paths were added
-    bf16_launches, _ = diffusion_main_path("bf16_sampler", max_itr=30)
+    bf16_launches, bf16_stats = diffusion_main_path("bf16_sampler",
+                                                    max_itr=30)
+    _, bf16_eager = diffusion_main_path("bf16_sampler", max_itr=25,
+                                        fused=False)
+    _compare_pair("bf16 sampler diffusion demo", bf16_stats["loop"],
+                  bf16_eager["loop"])
     tpu_launches, _ = diffusion_main_path("tpu")
-    _mark("diffusion demos")
+    _mark("diffusion demos, fused and eager")
     batch_launches["diffusion"], batch_k1["diffusion"], _ = \
         batched_main_path("diffusion", diffusion_stats)
     _mark("scene-batched diffusion demo")

@@ -26,8 +26,11 @@ the scenes by (frame count, image size, context size), chunks each
 bucket to N, and distills each chunk of two or more in lockstep
 (``distill/batched.py``), a chunk of one sequentially; the JAX demo's
 rule that sets ``scene_batch`` to the local chip count does not apply
-(one card a process).  ``--no_fused`` and ``-g`` / ``-p`` are accepted
-and change nothing.  With ``--device cuda``
+(one card a process).  On a CUDA device each scene's iterations run as
+CUDA graphs of the JAX loop's fused programs (``distill/fused.py``);
+``--no_fused`` runs them eagerly (``DistillConfig.fused_steps=False``),
+as the JAX demo's flag does; scene batches have no fused path.  ``-g`` /
+``-p`` are accepted and change nothing.  With ``--device cuda``
 and no CUDA device the demo raises; it never continues on the CPU.
 
 Several processes (``SF_COORDINATOR`` / ``SF_NUM_PROCESSES`` /
@@ -40,6 +43,7 @@ matmuls and convolutions run in full f32 (TF32 off,
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
@@ -79,8 +83,11 @@ def parse_args(argv=None):
                         "(occupancy grid, single-pass marching); 'auto' = "
                         "'tpu' on a TPU backend only, so 'reference'")
     p.add_argument("--no_fused", action="store_true",
-                   help="accepted for compatibility; the port has no "
-                        "fused dispatch programs")
+                   help="disable the fused per-iteration programs, CUDA "
+                        "graphs on the card (DistillConfig.fused_steps; "
+                        "default auto: on for CUDA, off on the CPU); only "
+                        "affects the sequential loop: scene batches >1 "
+                        "use distill/batched.py, which has no fused path")
     p.add_argument("--scene_batch", type=int, default=1,
                    help="scenes distilled in lockstep on one device")
     p.add_argument("--device", type=str, default="cuda",
@@ -219,6 +226,8 @@ def main(argv=None):
     preset = "reference" if args.preset == "auto" else args.preset
     make_cfg = tpu_distill_config if preset == "tpu" else DistillConfig
     cfg = make_cfg(max_itr=args.max_itr, start_fusion_step=args.start_fusion)
+    if args.no_fused:
+        cfg = dataclasses.replace(cfg, fused_steps=False)
 
     entries = []
     for val_idx in val_list:

@@ -25,6 +25,11 @@ step is the sum of the scenes' own losses, so each scene's gradient is
 its own, as under ``vmap``, and one Adam over the stacked parameters is S
 independent ones (Adam is elementwise and its step count is shared).
 
+The losses are read as the sequential loop reads them: kept on the
+device and fetched in one copy every ``loss_fetch_every`` iterations and
+at the end (``sync_times``).  The batched loop has no fused path, as in
+the JAX package.
+
 All scenes must share the image size, the frame count and the context
 size; callers bucket ragged scene lists (``cli/demo.py``).  The JAX
 loop's ``mesh`` (scenes sharded over the local chips) has no counterpart:
@@ -154,7 +159,23 @@ def batched_distillation_loop(
     scene_idx = torch.arange(S, device=device)
     losses = [[] for _ in range(S)]
     fusion_losses = [[] for _ in range(S)]
-    iter_times = []
+    iter_times, sync_times = [], []
+    # the losses stay on the device and are read in one copy every
+    # loss_fetch_every iterations and at the end, as in the JAX loop
+    loss_log = torch.zeros((2 if use_diffusion else 1, cfg.max_itr, S),
+                           device=device)
+    fetch_every = max(1, int(cfg.loss_fetch_every))
+    fetched = 0
+
+    def drain(itr):
+        nonlocal fetched
+        read = loss_log[:, fetched:itr + 1].tolist()
+        for log, rows in zip((losses, fusion_losses), read):
+            for row in rows:
+                for s, v in enumerate(row):
+                    log[s].append(v)
+        fetched = itr + 1
+        sync_times.append((itr, time.time()))
     render_modes = {"two_phase": 0, "march": 0}
     fusion_subset_steps = 0
 
@@ -185,8 +206,7 @@ def batched_distillation_loop(
             vc, pick(scene_vox, bi), rgb[scene_idx, bi_t],
             None if mask is None else mask[scene_idx, bi_t], generator,
             bitfield=bitfield)
-        for s, v in enumerate(loss.tolist()):
-            losses[s].append(v)
+        loss_log[0, itr].copy_(loss)
         if use_diffusion:
             ci = [int(r.randint(n_cache)) for r in host_rngs]
             ci_t = torch.as_tensor(ci, device=device)
@@ -202,10 +222,11 @@ def batched_distillation_loop(
                 floss = steps.bootstrap_step(
                     vc, cam_f, eft_images[scene_idx, ci_t], generator,
                     bitfield=bitfield)
-            for s, v in enumerate(floss.tolist()):
-                fusion_losses[s].append(v)
+            loss_log[1, itr].copy_(floss)
+        if (itr + 1) % fetch_every == 0 or itr == cfg.max_itr - 1:
+            drain(itr)
         iter_times.append(time.time())
-        if verbose and itr % 200 == 0:
+        if verbose and itr % 200 == 0 and losses[0]:
             print(f"itr {itr:5d} loss "
                   f"{np.mean([l[-1] for l in losses]):.4f} "
                   f"({S * (itr + 1) / (time.time() - t0):.2f} scene-it/s)")
@@ -228,7 +249,11 @@ def batched_distillation_loop(
             # UNet evaluations of the batch, each at batch S
             "unet_evals": (models.unet_evals - unet_evals0
                            if models is not None else 0),
+            # the host clock at each iteration's end, and at each loss
+            # read (distill/loop.py's ``sync_times``, ``loop_start``)
             "iter_times": iter_times,
+            "sync_times": sync_times,
+            "loop_start": t0,
             "occupancy": scene_occupancy,
             "render_modes": render_modes,
             "fusion_subset_steps": fusion_subset_steps,

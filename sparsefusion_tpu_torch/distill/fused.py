@@ -1,0 +1,379 @@
+"""The distillation loop's iteration programs, captured as CUDA graphs.
+
+Counterpart of the fused dispatch of ``sparsefusion_tpu/distill/loop.py``
+(``DistillConfig.fused_steps``), which turns an iteration into a few
+jitted programs.  Here each program is a Python function over static
+buffers, captured once per static key into a ``torch.cuda.CUDAGraph``
+and replayed; the programs, as the JAX package's:
+
+* ``input_iter``: the input step (the NGP-only loop's iteration);
+* ``boot_iter``: the input step, then the bootstrap step;
+* a fusion iteration: ``fusion_front`` (the input step, the fusion
+  step's full render, the VAE encode and the sampler's q-sample), PLMS
+  ``step0``, ``n_steps - 1`` replays of a ``tail`` step (one per
+  Adams-Bashforth order: 1, 2, then 3 for every later step), and
+  ``fusion_back`` (clip, VAE decode, the fusion step's gradient and
+  update).  The JAX package renders twice with one key, once in each of
+  its front and back programs; here the back graph's backward runs
+  through the front graph's render, whose autograd graph (built at the
+  front's capture) stays alive with its saved tensors in the shared
+  pool, so a fusion iteration renders once, as the eager step does.
+  With ``fusion_rays`` the gradient step renders its ray subset in the
+  back program, as in the eager step.
+
+The static key is the program, the render config (two-phase or
+marching) and the tail's order; the arm, ``subsample_fusion`` and the
+sampler's dtype are fixed for a loop.  Each iteration's inputs reach the
+graphs through the loop's index buffers (the input view, the cached
+camera), ``max_thres`` and the bitfield; the programs gather the
+cameras, targets and features from the scene's and the cache's tensors
+on the device.  The sampler's state (latents, the ring of the three last
+epsilons, the times from ``max_thres``, the step index, the fusion
+weight) lives in buffers made at a program's first run, which is eager.
+
+On a CUDA device a key's first run is eager, on a side stream: it is
+the iteration's real work and the warm-up that builds the kernels, the
+optimizer's state and the libraries' handles.  Its second run captures
+(the loop's generator registered with the graph, so that every replay
+draws fresh numbers, in the order the eager steps draw them) and then
+replays; later runs replay.  Each graph has a memory pool of its own:
+with one pool shared by all graphs, an eager warm-up run between the
+front program's replay and the back program's overwrote the front's
+render, which the back graph reads (PyTorch 2.11 on an H100); with a
+pool a graph, nothing outside a graph writes its memory.  A capture or
+replay that fails raises: there is no eager fallback.  The
+kernels' launch counters and the UNet evaluations count in Python, so
+each graph records what its capture counted and adds it at each
+replay.  Elsewhere (the CPU) every run is eager, which is how the
+tests hold the fused structure against the unfused loop.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import time
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from sparsefusion_tpu_torch.core.cameras import Cameras, concat_cameras
+from sparsefusion_tpu_torch.diffusion.plms import (
+    eps_fn,
+    host_schedule,
+    plms_prologue,
+    plms_schedule,
+    plms_step0,
+    plms_tail_step,
+)
+
+
+def launch_counters(models=None) -> List[Tuple[object, str]]:
+    """The Python counts that a replayed graph must advance: the kernels'
+    launch counters and, with ``models``, its UNet evaluations."""
+    from sparsefusion_tpu_torch.kernels import attention, grid_encode
+    from sparsefusion_tpu_torch.kernels import row_gather
+
+    counters = [(grid_encode.grid_encode_cuda, a)
+                for a in ("launches", "scenes", "launches_bf16")]
+    counters += [(grid_encode.grid_encode_cuda_backward, a)
+                 for a in ("launches", "scenes")]
+    counters += [(attention.imagen_attention_cuda, a) for a in (
+        "launches", "launches_bf16", "launches_bf16_wgmma")]
+    counters.append((row_gather.row_gather_cuda, "launches"))
+    if models is not None:
+        counters.append((models, "unet_evals"))
+    return counters
+
+
+class GraphRunner:
+    """Runs programs under static keys: on a CUDA device eagerly the first
+    time, captured into a CUDA graph the second, replayed from then on;
+    on any other device eagerly every time."""
+
+    def __init__(self, device: torch.device, generator: torch.Generator,
+                 counters: List[Tuple[object, str]]):
+        self.graphs = device.type == "cuda"
+        self.device = device
+        self.generator = generator
+        self.counters = counters
+        self._captured: Dict[tuple, Tuple[torch.cuda.CUDAGraph, list]] = {}
+        self._warm = set()
+        self.warmups = 0
+        self.replays = 0
+        self.captures: List[dict] = []
+        if self.graphs:
+            self._stream = torch.cuda.Stream(device)
+
+    def _read(self) -> list:
+        return [getattr(o, a) for o, a in self.counters]
+
+    def run(self, key: tuple, program, itr: int) -> None:
+        if not self.graphs:
+            program()
+            return
+        entry = self._captured.get(key)
+        if entry is None:
+            if key not in self._warm:
+                self._warm.add(key)
+                self.warmups += 1
+                current = torch.cuda.current_stream(self.device)
+                self._stream.wait_stream(current)
+                with torch.cuda.stream(self._stream):
+                    program()
+                current.wait_stream(self._stream)
+                return
+            entry = self._capture(key, program, itr)
+        graph, counted = entry
+        graph.replay()
+        for (owner, attr), n in zip(self.counters, counted):
+            setattr(owner, attr, getattr(owner, attr) + n)
+        self.replays += 1
+
+    def _capture(self, key, program, itr):
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        before = self._read()
+        current = torch.cuda.current_stream(self.device)
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, stream=self._stream):
+                program()
+        except BaseException:
+            # a failed capture's exit leaves the capture stream current
+            torch.cuda.set_stream(current)
+            raise
+        torch.cuda.synchronize(self.device)
+        seconds = time.perf_counter() - t0
+        after = self._read()
+        # the capture launched nothing; each replay adds what it counted
+        for (owner, attr), n in zip(self.counters, before):
+            setattr(owner, attr, n)
+        entry = (graph, [a - b for a, b in zip(after, before)])
+        self._captured[key] = entry
+        self.captures.append({"key": _key_name(key), "itr": itr,
+                              "seconds": seconds})
+        return entry
+
+
+def _key_name(key: tuple) -> str:
+    return "/".join(("march" if k.march_steps else "two_phase")
+                    if hasattr(k, "march_steps") else str(k) for k in key)
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+def _gather(cams: Cameras, idx: torch.Tensor) -> Cameras:
+    return Cameras(*(getattr(cams, f.name).index_select(0, idx)
+                     for f in dataclasses.fields(Cameras)))
+
+
+class FusedIterations:
+    """The fused programs of one scene's loop (``SceneSteps`` of one
+    scene, its generator, the scene's relative cameras, images and masks,
+    the Phase A cache or None, the loop's bitfield buffer or None)."""
+
+    def __init__(self, steps, generator: torch.Generator, scene_vox: Cameras,
+                 scene_rgb: torch.Tensor, scene_mask: Optional[torch.Tensor],
+                 feature_cache=None, bitfield: Optional[torch.Tensor] = None):
+        if steps.scene_axis:
+            raise ValueError("the fused programs run one scene; scene "
+                             "batches have no fused path")
+        self.steps = steps
+        self.cfg = steps.cfg
+        self.models = steps.models
+        self.generator = generator
+        self.scene_vox, self.scene_rgb = scene_vox, scene_rgb
+        self.scene_mask = scene_mask
+        self.bitfield = bitfield
+        dev = scene_rgb.device
+        self.runner = GraphRunner(dev, generator,
+                                  launch_counters(self.models))
+        # the iteration's host draws, as device indices and a float64 level
+        self.bi = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.ci = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.mt = torch.zeros((), dtype=torch.float64, device=dev)
+        self.loss = torch.zeros((), device=dev)
+        self.floss = torch.zeros((), device=dev)
+        self.buffers: Dict[object, torch.Tensor] = {}
+        # the front program's render (image, silhouette) with its autograd
+        # graph, by render config, for the back program
+        self.rendered: Dict[object, tuple] = {}
+        if feature_cache is not None:
+            self.cams_f = concat_cameras(feature_cache["cameras_vox"])
+            self.features = feature_cache["features"]
+            self.eft_images = feature_cache["eft_images"]
+            if self.cfg.sampler_bf16:
+                # the sampler's bf16 UNet is made before any capture
+                self.models.unet_half()
+
+    def _buffer(self, name, like: torch.Tensor) -> torch.Tensor:
+        """The static buffer ``name``, made like ``like`` at the first
+        (eager) run of the program that writes it."""
+        buf = self.buffers.get(name)
+        if buf is None:
+            if _capturing():
+                raise RuntimeError(f"buffer {name!r} first made inside a "
+                                   "capture")
+            buf = self.buffers[name] = torch.zeros_like(like)
+        return buf
+
+    def _randn(self, like: torch.Tensor) -> torch.Tensor:
+        return torch.randn(like.shape, generator=self.generator,
+                           dtype=like.dtype, device=like.device)
+
+    # ---- the programs: each reads and writes static buffers only -------
+
+    def _input(self, vc, draws=None) -> None:
+        gt_mask = None if self.scene_mask is None else \
+            self.scene_mask.index_select(0, self.bi)[0]
+        self.loss.copy_(self.steps.input_step(
+            vc, _gather(self.scene_vox, self.bi),
+            self.scene_rgb.index_select(0, self.bi)[0], gt_mask,
+            self.generator, draws, self.bitfield))
+
+    def input_iter(self, vc, draws=None) -> None:
+        self._input(vc, draws)
+
+    def boot_iter(self, vc, draws=None, boot_draws=None) -> None:
+        self._input(vc, draws)
+        self.floss.copy_(self.steps.bootstrap_step(
+            vc, _gather(self.cams_f, self.ci),
+            self.eft_images.index_select(0, self.ci)[0], self.generator,
+            boot_draws, self.bitfield))
+
+    def _eps(self):
+        cfg, models = self.cfg, self.models
+        return eps_fn(models.ddpm,
+                      functools.partial(models.denoise_fn,
+                                        bf16=cfg.sampler_bf16),
+                      self.buffers["cond"], cfg.cond_scale)
+
+    def fusion_front(self, vc, draws=None, fusion_draws=None) -> None:
+        """The input step; the fusion step's render of the cached camera
+        (with gradient, after the update's ``zero_grad``, as the eager
+        step takes it; without, when the gradient step takes a ray
+        subset); the VAE encode and the sampler's q-sample.
+        ``fusion_draws``: the render's ``jitter`` / ``u`` and the
+        sampler's ``init_noise``, from the generator where absent."""
+        self._input(vc, draws)
+        steps, models, fd = self.steps, self.models, fusion_draws or {}
+        cam_f = _gather(self.cams_f, self.ci)
+        if steps.subsample_fusion:
+            with torch.no_grad():
+                img, _ = steps.render_up(vc, cam_f, self.generator, fd,
+                                         self.bitfield)
+        else:
+            steps.optimizer.zero_grad()
+            img, sil = steps.render_up(vc, cam_f, self.generator, fd,
+                                       self.bitfield)
+            # the back program's loss continues this render's autograd
+            # graph (in a capture, the graph's saved tensors stay in the
+            # pool for the back graph's backward)
+            self.rendered[vc] = (img, sil)
+        with torch.no_grad():
+            latents = models.vae_encode(img.detach()[None])
+            full_start, times = plms_schedule(self.mt, self.cfg.plms_steps)
+            noise = fd["init_noise"] if "init_noise" in fd else \
+                self._randn(latents)
+            x0, _, log_snr = plms_prologue(models.ddpm, latents, self.mt,
+                                           full_start, noise)
+            cond = self.features.index_select(0, self.ci)
+            weight = (1.0 - torch.sigmoid(log_snr))[0]
+            for name, value in (("x", x0), ("times", times), ("cond", cond),
+                                ("weight", weight)):
+                self._buffer(name, value).copy_(value)
+            self._buffer("idx", self.bi).fill_(1)
+
+    @torch.no_grad()
+    def step0(self, noises=None) -> None:
+        x, times = self.buffers["x"], self.buffers["times"]
+        n1, n2 = noises if noises is not None else (self._randn(x),
+                                                    self._randn(x))
+        x_new, e_t = plms_step0(self.models.ddpm, self._eps(), x, times[0],
+                                times[1], n1, n2)
+        x.copy_(x_new)
+        for k in range(3):
+            self._buffer(("hist", k), e_t)
+        self.buffers[("hist", 0)].copy_(e_t)
+
+    @torch.no_grad()
+    def tail(self, order: int, noise=None) -> None:
+        """One later step at the step index buffer's times, of the
+        Adams-Bashforth order ``order`` (1, 2, or 3 for AB4)."""
+        x, times, idx = (self.buffers[k] for k in ("x", "times", "idx"))
+        hist = [self.buffers[("hist", k)] for k in range(3)]
+        t = times.index_select(0, idx).reshape(())
+        t_next = times.index_select(0, idx + 1).reshape(())
+        x_new, e_t = plms_tail_step(
+            self.models.ddpm, self._eps(), x, t, t_next, hist[:order],
+            noise if noise is not None else self._randn(x))
+        x.copy_(x_new)
+        hist[2].copy_(hist[1])
+        hist[1].copy_(hist[0])
+        hist[0].copy_(e_t)
+        idx.add_(1)
+
+    def fusion_back(self, vc, draws=None) -> None:
+        """The clip, the VAE decode and the fusion step's gradient and
+        update: through the front's render, or, with a ray subset, on
+        ``fusion_rays`` rays rendered here (``draws``: their
+        ``fusion_ray_idx``, ``fusion_jitter``, ``fusion_u``, from the
+        generator where absent)."""
+        steps, ddpm = self.steps, self.models.ddpm
+        with torch.no_grad():
+            x = self.buffers["x"]
+            if ddpm.config.clip_output:
+                x = torch.clamp(x, -ddpm.config.clip_value,
+                                ddpm.config.clip_value)
+            pred_img = self.models.vae_decode(x)[0]
+        weight = self.buffers["weight"]
+        if steps.subsample_fusion:
+            loss = steps.update(steps.fusion_subset_losses, vc,
+                                _gather(self.cams_f, self.ci), pred_img,
+                                weight, self.generator, draws, self.bitfield)
+        else:
+            img, sil = self.rendered[vc]
+            # a captured backward keeps the render's graph: its replays
+            # read the saved tensors that the front graph's replays write
+            loss = steps.apply_update(
+                steps.fusion_full_losses(img, sil, pred_img, weight),
+                retain_graph=_capturing())
+        self.floss.copy_(loss)
+
+    # ---- one iteration --------------------------------------------------
+
+    def iteration(self, itr: int, vc, bi: int, ci: Optional[int] = None,
+                  mt: Optional[float] = None, fusion: bool = False):
+        """Run iteration ``itr`` on the input view ``bi`` and, with the
+        diffusion arm, the cached camera ``ci`` and noise level ``mt``;
+        returns the loss buffers (the second None without the arm).  The
+        buffers hold the values until the next iteration."""
+        run = self.runner.run
+        self.bi.fill_(int(bi))
+        if ci is None:
+            run(("input", vc), functools.partial(self.input_iter, vc), itr)
+            return self.loss, None
+        self.ci.fill_(int(ci))
+        if not fusion:
+            run(("boot", vc), functools.partial(self.boot_iter, vc), itr)
+            return self.loss, self.floss
+        self.mt.fill_(float(mt))
+        _, n_steps, _ = host_schedule(mt, self.cfg.plms_steps)
+        run(("front", vc), functools.partial(self.fusion_front, vc), itr)
+        if n_steps > 0:
+            run(("step0",), self.step0, itr)
+        for i in range(1, n_steps):
+            order = min(i, 3)
+            run(("tail", order), functools.partial(self.tail, order), itr)
+        run(("back", vc), functools.partial(self.fusion_back, vc), itr)
+        return self.loss, self.floss
+
+    def stats(self) -> dict:
+        """Warm-ups, captures (key, iteration, seconds) and replays."""
+        r = self.runner
+        return {"graphs": r.graphs, "warmups": r.warmups,
+                "captures": list(r.captures), "replays": r.replays}

@@ -37,10 +37,20 @@ render to its target, its gradient through the render, and the fusion
 step renders the full grid (``fusion_rays`` is then not used, as in the
 JAX package); Phase C adds an ``lpips`` column.  The steps also run S
 scenes at once on an ``NGPFieldStack`` (``distill/batched.py``).
-Options that only shaped the JAX package's dispatch
-(``fused_steps``, ``plms_host_loop``, ``plms_scan_tail``,
-``loss_fetch_every``) are accepted and ignored: the port runs eagerly
-and reads the losses every iteration.
+
+The JAX package's dispatch options: ``fused_steps`` (None: on a CUDA
+device, off on the CPU, as the JAX package turns it off on its CPU)
+runs each iteration as the JAX loop's programs, an input step, a
+bootstrap iteration, or a fusion iteration's front, PLMS step 0, PLMS
+tail steps and back (``distill/fused.py``), each captured once into a
+CUDA graph and replayed; on the CPU (``fused_steps=True``) the same
+programs run eagerly.  The sampler in them is the counterpart of
+``plms_sample_host`` with ``scan_tail``, which ``plms_host_loop`` and
+``plms_scan_tail`` select in the JAX package; the port's eager sampler
+(``diffusion/plms.py::plms_sample``) is that loop too, so those two
+options change nothing here.  ``loss_fetch_every`` sets how often the
+losses, kept on the device, are read: in one copy every that many
+iterations, at ``eval_every`` and at the end.
 """
 from __future__ import annotations
 
@@ -49,7 +59,7 @@ import functools
 import json
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -130,6 +140,7 @@ class DistillConfig:
     occupancy_probe: int = 64
     occ_march_steps: Optional[int] = None
     polish_start: Optional[int] = None
+    # read the losses from the device every this many iterations
     loss_fetch_every: int = 20
     density_thresh: float = 10.0
     # input steps on a uniform random subset of the render_hw^2 rays
@@ -139,6 +150,8 @@ class DistillConfig:
     # recompute each render chunk in the backward pass instead of keeping
     # every chunk's activations (torch.utils.checkpoint)
     remat: bool = True
+    # the iterations as the fused programs of distill/fused.py (CUDA
+    # graphs on a CUDA device); None: on CUDA, off on the CPU
     fused_steps: Optional[bool] = None
 
     def __post_init__(self):
@@ -179,19 +192,73 @@ def tpu_distill_config(**overrides) -> DistillConfig:
     return DistillConfig(**base)
 
 
+class TensorStepLR:
+    """``StepLR``'s staircase on 0-d float32 learning-rate tensors
+    (``lrs``, one a base rate): every :meth:`step` moves the rates to
+    ``base * gamma ** (n // step_size)`` after n steps, with device
+    operations only (a counter, a division and a gather from a table of
+    the staircase's values), so that a CUDA graph holding an optimizer
+    update replays the tick too.  The table holds the values ``StepLR``
+    chains in double precision from the float bases, rounded to float32,
+    until they reach 0 or infinity there (or at once for ``gamma`` 1);
+    later steps stay on the last one."""
+
+    MAX_LEVELS = 4096
+
+    def __init__(self, bases, step_size: int, gamma: float, device=None):
+        self.step_size = int(step_size)
+        columns = []
+        for value in map(float, bases):
+            col = []
+            while len(col) < self.MAX_LEVELS:
+                col.append(value)
+                if gamma == 1.0 or not 0 < abs(np.float32(value)) < np.inf:
+                    break
+                value *= gamma
+            columns.append(col)
+        levels = max(len(c) for c in columns)
+        self.table = torch.tensor(
+            [c + [c[-1]] * (levels - len(c)) for c in columns],
+            dtype=torch.float32, device=device)          # (groups, levels)
+        self.lrs = [self.table[g, 0].clone() for g in range(len(columns))]
+        self.count = torch.zeros((1,), dtype=torch.int64, device=device)
+
+    def step(self) -> None:
+        self.count += 1
+        level = torch.clamp(torch.div(self.count, self.step_size,
+                                      rounding_mode="floor"),
+                            max=self.table.shape[1] - 1)
+        rates = self.table.index_select(1, level)
+        for g, lr in enumerate(self.lrs):
+            lr.copy_(rates[g, 0])
+
+
 class NGPOptimizer:
     """Adam with 10x lr on the grid table and a staircase decay that ticks
-    once per optimizer update (the JAX package's optax chain)."""
+    once per optimizer update (the JAX package's optax chain).
+
+    On a CUDA field the update can be captured in a CUDA graph
+    (``distill/fused.py``): Adam runs with ``capturable=True`` on 0-d
+    learning-rate tensors, which :class:`TensorStepLR` ticks on the
+    device.  On the CPU the rates are floats under ``StepLR``."""
 
     def __init__(self, field: NGPField, cfg: DistillConfig):
         mlp = [p for n, p in field.named_parameters() if n != "grid"]
+        rates = (cfg.lr * 10, cfg.lr)
+        self.capturable = field.grid.is_cuda
+        if self.capturable:
+            self.schedule = TensorStepLR(rates, cfg.lr_decay_step,
+                                         cfg.lr_decay_gamma,
+                                         field.grid.device)
+            rates = self.schedule.lrs
         self.adam = torch.optim.Adam(
-            [{"params": [field.grid], "lr": cfg.lr * 10},
-             {"params": mlp, "lr": cfg.lr}],
-            betas=(0.9, 0.999), eps=1e-8)
-        self.schedule = torch.optim.lr_scheduler.StepLR(
-            self.adam, step_size=cfg.lr_decay_step,
-            gamma=cfg.lr_decay_gamma)
+            [{"params": [field.grid], "lr": rates[0]},
+             {"params": mlp, "lr": rates[1]}],
+            betas=(0.9, 0.999), eps=1e-8, capturable=self.capturable)
+        if not self.capturable:
+            self.schedule = torch.optim.lr_scheduler.StepLR(
+                self.adam, step_size=cfg.lr_decay_step,
+                gamma=cfg.lr_decay_gamma)
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
@@ -357,13 +424,19 @@ class SceneSteps:
                            u=draws.get("u"),
                            near_far_fn=self.make_nff(bitfield))
 
-    def _update(self, losses_fn, *args, **kwargs) -> torch.Tensor:
+    def update(self, losses_fn, *args, **kwargs) -> torch.Tensor:
         """Loss, gradient and Adam update, in place on the field's
         parameters (the gradient of the sum of S scenes' losses).
         Returns the (detached) loss."""
         self.optimizer.zero_grad()
-        loss = losses_fn(*args, **kwargs)
-        loss.sum().backward()
+        return self.apply_update(losses_fn(*args, **kwargs))
+
+    def apply_update(self, loss: torch.Tensor,
+                     retain_graph: bool = False) -> torch.Tensor:
+        """The gradient of ``loss`` (summed) and the Adam update, after a
+        ``optimizer.zero_grad()`` before the loss's forward pass; returns
+        the detached loss."""
+        loss.sum().backward(retain_graph=retain_graph)
         self.optimizer.step()
         return loss.detach()
 
@@ -372,7 +445,7 @@ class SceneSteps:
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[Dict[str, torch.Tensor]] = None,
                    bitfield: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self._update(self.input_losses, vc, cam, gt_rgb, gt_mask,
+        return self.update(self.input_losses, vc, cam, gt_rgb, gt_mask,
                             generator, draws, bitfield)
 
     def render_up(self, vc, cam, generator=None, draws=None, bitfield=None):
@@ -407,7 +480,7 @@ class SceneSteps:
 
     def bootstrap_step(self, vc, cam, eft_img, generator=None, draws=None,
                        bitfield=None):
-        return self._update(self.bootstrap_losses, vc, cam, eft_img,
+        return self.update(self.bootstrap_losses, vc, cam, eft_img,
                             generator, draws, bitfield)
 
     @torch.no_grad()
@@ -452,6 +525,11 @@ class SceneSteps:
         pred_img, weight = self.fusion_target(
             img.detach(), features, max_thres, generator,
             draws.get("plms_noise"))
+        return self.fusion_full_losses(img, sil, pred_img, weight)
+
+    def fusion_full_losses(self, img, sil, pred_img, weight):
+        """The full-grid fusion loss of a render (image and silhouette)
+        against its target ``pred_img`` at ``weight``."""
         loss = weight * self._mean((img - pred_img).abs())
         if self.use_percep:
             loss = loss + self.cfg.lambda_percep * self._mean(self.lpips_fn(
@@ -479,7 +557,7 @@ class SceneSteps:
 
     def fusion_step(self, vc, cam, features, max_thres, generator=None,
                     draws=None, bitfield=None):
-        return self._update(self.fusion_losses, vc, cam, features,
+        return self.update(self.fusion_losses, vc, cam, features,
                             max_thres, generator, draws, bitfield)
 
 
@@ -582,15 +660,19 @@ def distillation_loop(
     use_diffusion: bool = True,
     verbose: bool = True,
     lpips_fn=None,
+    iteration_hook: Optional[Callable[[int], None]] = None,
 ) -> Dict[str, Any]:
     """Optimize an NGP for one scene on the device of ``generator``, which
     makes every random draw; returns params, metrics, renders, the losses,
-    the per-iteration host clock, the iterations by render mode, the
-    subsampled fusion steps and, with ``cfg.use_occupancy``, the occupancy
-    grid's updates.  ``models`` (the bundle of
+    the per-iteration host clock and the loss reads' (``sync_times``), the
+    iterations by render mode, the subsampled fusion steps, the fused
+    programs' captures and replays and, with ``cfg.use_occupancy``, the
+    occupancy grid's updates.  ``models`` (the bundle of
     ``models.build_models``) is needed with ``use_diffusion`` only;
     ``lpips_fn`` adds the fusion loss's perceptual term and the Phase C
-    ``lpips`` column."""
+    ``lpips`` column.  ``iteration_hook`` is called with each iteration's
+    index at its end, after its loss read if one is due (a measurement's
+    hook: a profiler window, a counter)."""
     if use_diffusion and models is None:
         raise ValueError("the diffusion arm needs the EFT/VAE/UNet models")
     device = generator.device
@@ -639,6 +721,8 @@ def distillation_loop(
         occ_grid = OccupancyGrid(bound=cfg.bound, grid_size=OCC_GRID_SIZE,
                                  density_thresh=cfg.density_thresh,
                                  device=device)
+        # one buffer for the loop: each grid update is copied into it,
+        # so the fused programs' graphs read the new bitfield
         bitfield = occ_grid.full_bitfield()
         occupancy = {"update_itrs": [], "update_seconds": [],
                      "occupied_share": []}
@@ -646,55 +730,90 @@ def distillation_loop(
     def occ_density_fn(pts):
         return field(pts)[0]
 
+    fused = cfg.fused_steps
+    if fused is None:
+        fused = device.type == "cuda"
+    programs = None
+    if fused:
+        from sparsefusion_tpu_torch.distill.fused import FusedIterations
+
+        programs = FusedIterations(steps, generator, scene_vox, scene_rgb,
+                                   scene_mask, feature_cache, bitfield)
+
     host_rng = np.random.RandomState(17)
+    # the losses stay on the device and are read in one copy every
+    # loss_fetch_every iterations, at eval_every and at the end
+    loss_log = torch.zeros((2 if use_diffusion else 1, cfg.max_itr),
+                           device=device)
     losses, fusion_losses = [], []
-    iter_times = []
+    iter_times, sync_times = [], []
+    fetch_every = max(1, int(cfg.loss_fetch_every))
+
+    def drain(itr):
+        read = loss_log[:, len(losses):itr + 1].tolist()
+        losses.extend(read[0])
+        if use_diffusion:
+            fusion_losses.extend(read[1])
+        sync_times.append((itr, time.time()))
+
     render_modes = {"two_phase": 0, "march": 0}
     fusion_subset_steps = 0
     t0 = time.time()
     for itr in range(cfg.max_itr):
         vc = active_vcfg(itr)
         render_modes["march" if vc.march_steps else "two_phase"] += 1
-        # occupancy maintenance before the iteration's steps, as in the
-        # JAX loop
+        # occupancy maintenance before the iteration's steps, eagerly, as
+        # in the JAX loop
         if occupancy_update_due(cfg, itr):
             t_occ = time.time()
             occ_grid.update(occ_density_fn, generator)   # reads the mean
-            bitfield = occ_grid.bitfield
+            bitfield.copy_(occ_grid.bitfield)
             occupancy["update_itrs"].append(itr)
             occupancy["update_seconds"].append(time.time() - t_occ)
             occupancy["occupied_share"].append(_occupied_share(bitfield))
         # host draws in the JAX package's order: input view, then the
         # cached camera and the noise level
         bi = input_idx[host_rng.randint(len(input_idx))]
-        cam = get_camera_slice(scene_vox, [bi])
-        gt_mask = scene_mask[bi] if scene_mask is not None else None
+        ci = mt = None
         if use_diffusion:
             ci = int(host_rng.randint(n_cache))
             mt = min(float(host_rng.uniform()), 0.99)
-            cam_f = feature_cache["cameras_vox"][ci]
-        loss = steps.input_step(vc, cam, scene_rgb[bi], gt_mask, generator,
-                                bitfield=bitfield)
-        losses.append(float(loss))
-        if use_diffusion:
-            if itr > cfg.start_fusion_step:
-                fusion_subset_steps += int(steps.subsample_fusion)
-                floss = steps.fusion_step(vc, cam_f,
-                                          feature_cache["features"][ci], mt,
-                                          generator, bitfield=bitfield)
-            else:
-                floss = steps.bootstrap_step(
-                    vc, cam_f, feature_cache["eft_images"][ci], generator,
+        fusion = use_diffusion and itr > cfg.start_fusion_step
+        fusion_subset_steps += int(fusion and steps.subsample_fusion)
+        if programs is not None:
+            loss, floss = programs.iteration(itr, vc, bi, ci, mt, fusion)
+        else:
+            loss = steps.input_step(
+                vc, get_camera_slice(scene_vox, [bi]), scene_rgb[bi],
+                scene_mask[bi] if scene_mask is not None else None,
+                generator, bitfield=bitfield)
+            floss = None
+            if fusion:
+                floss = steps.fusion_step(
+                    vc, feature_cache["cameras_vox"][ci],
+                    feature_cache["features"][ci], mt, generator,
                     bitfield=bitfield)
-            fusion_losses.append(float(floss))
+            elif use_diffusion:
+                floss = steps.bootstrap_step(
+                    vc, feature_cache["cameras_vox"][ci],
+                    feature_cache["eft_images"][ci], generator,
+                    bitfield=bitfield)
+        loss_log[0, itr].copy_(loss)
+        if floss is not None:
+            loss_log[1, itr].copy_(floss)
+        if (itr + 1) % fetch_every == 0 or itr == cfg.max_itr - 1:
+            drain(itr)
         iter_times.append(time.time())
-        if verbose and itr % 200 == 0:
+        if verbose and itr % 200 == 0 and losses:
             print(f"itr {itr:5d} loss {losses[-1]:.4f} "
                   f"({(itr + 1) / (time.time() - t0):.2f} it/s)")
         if (cfg.eval_every > 0 and save_dir is not None
                 and itr % cfg.eval_every == 0 and itr > 0):
+            drain(itr)
             _save_intermediate(save_dir, scene.sequence_name, losses,
                                fusion_losses)
+        if iteration_hook is not None:
+            iteration_hook(itr)
 
     # ---- Phase C: eval ------------------------------------------------
     # in the render mode of the last iteration, inside the occupied span
@@ -708,9 +827,18 @@ def distillation_loop(
         "cache_seconds": cache_seconds,
         "unet_evals": (models.unet_evals - unet_evals0
                        if models is not None else 0),
-        # host wall clock at the end of each iteration; the loss read
-        # synchronizes every iteration, so the differences are step times
+        # host wall clock at the end of each iteration.  The host waits
+        # for the device only where it reads the losses (every
+        # cfg.loss_fetch_every iterations), so with a cadence above 1 the
+        # differences are dispatch times: ``sync_times``, the (iteration,
+        # wall clock) of each read, time the iterations themselves, from
+        # ``loop_start``, the wall clock when the first began
         "iter_times": iter_times,
+        "sync_times": sync_times,
+        "loop_start": t0,
+        # with cfg.fused_steps: the fused programs' warm-ups, captures
+        # (key, iteration, seconds) and replays (distill/fused.py)
+        "fused": None if programs is None else programs.stats(),
         # with cfg.use_occupancy: the iterations before which the grid was
         # updated, each update's seconds (it ends in a read of the mean)
         # and the occupied share of the bitfield after it

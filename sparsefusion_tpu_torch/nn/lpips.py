@@ -84,6 +84,10 @@ class LPIPS(nn.Module):
         self.vgg = VGG16Features()
         for i, widths in enumerate(_VGG_PLAN):
             setattr(self, f"lin{i}", _Lin(widths[-1]))
+        # the scaling layer's constants by (device, dtype), each copied to
+        # the device once: a copy from the host at every call would stall
+        # the loop and cannot be captured in a CUDA graph
+        self._consts = {}
 
     def forward(self, img0: torch.Tensor, img1: torch.Tensor,
                 normalize: bool = False) -> torch.Tensor:
@@ -92,8 +96,11 @@ class LPIPS(nn.Module):
         if normalize:
             img0 = 2 * img0 - 1
             img1 = 2 * img1 - 1
-        shift = img0.new_tensor(_SHIFT)
-        scale = img0.new_tensor(_SCALE)
+        key = (img0.device, img0.dtype)
+        if key not in self._consts:
+            self._consts[key] = (img0.new_tensor(_SHIFT),
+                                 img0.new_tensor(_SCALE))
+        shift, scale = self._consts[key]
 
         def feats(img):
             return self.vgg(((img - shift) / scale).permute(0, 3, 1, 2))

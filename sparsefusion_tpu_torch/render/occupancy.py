@@ -205,8 +205,10 @@ def occupancy_lookup(bitfield: torch.Tensor, x: torch.Tensor, bound: float,
     mx = x.abs().amax(dim=-1)
     level = torch.clamp(torch.ceil(torch.log2(torch.clamp(mx, min=1.0))),
                         0, cascade - 1).to(torch.int64)
-    bounds = torch.tensor([min(2.0 ** c, bound) for c in range(cascade)],
-                          dtype=torch.float32, device=x.device)
+    # made on the device: a host tensor copied here would stall the loop
+    # and cannot be captured in a CUDA graph
+    bounds = torch.clamp(2.0 ** torch.arange(cascade, dtype=torch.float32,
+                                             device=x.device), max=bound)
     cas_bound = bounds[level]
     pos = (x / cas_bound[..., None] + 1.0) * 0.5 * gs
     # truncated toward zero as astype(int32) does; clamped first so points

@@ -93,6 +93,26 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
     return bins_lo + t * (bins_hi - bins_lo)
 
 
+class _CumprodNonzero(torch.autograd.Function):
+    """``torch.cumprod`` over the last axis of factors that are never 0,
+    with the gradient PyTorch takes for such factors: the reversed cumsum
+    of output x grad, over the factors.  PyTorch's own backward first
+    asks the device whether any factor is 0 (a read on the host at every
+    backward), which stalls the eager loop and cannot be captured in a
+    CUDA graph."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def _composite(sigmas: torch.Tensor, z_vals: torch.Tensor,
                sample_dist: torch.Tensor):
     """Alpha compositing. Returns (weights, weights_sum)."""
@@ -100,9 +120,10 @@ def _composite(sigmas: torch.Tensor, z_vals: torch.Tensor,
     deltas = torch.cat([deltas, sample_dist.expand_as(deltas[..., :1])],
                        dim=-1)
     alphas = 1.0 - torch.exp(-deltas * sigmas)
+    # every factor is >= 1e-15 (alphas <= 1)
     shifted = torch.cat([torch.ones_like(alphas[..., :1]),
                          1.0 - alphas + 1e-15], dim=-1)
-    weights = alphas * torch.cumprod(shifted, dim=-1)[..., :-1]
+    weights = alphas * _CumprodNonzero.apply(shifted)[..., :-1]
     return weights, weights.sum(dim=-1)
 
 
@@ -252,8 +273,12 @@ def render_rays_chunked(field_fn: Callable, rays_o: torch.Tensor,
                 None if jitter is None else jitter[sl],
                 None if u is None else u[sl])
         if remat and torch.is_grad_enabled():
+            # every draw is made above, before the chunks, so the
+            # recomputation needs no saved RNG state; saving it would
+            # read the generator's state, which a CUDA graph capture
+            # cannot do
             outs.append(torch.utils.checkpoint.checkpoint(
-                body, *args, use_reentrant=False))
+                body, *args, use_reentrant=False, preserve_rng_state=False))
         else:
             outs.append(body(*args))
     return {k: torch.cat([o[k] for o in outs], dim=len(lead))

@@ -63,6 +63,10 @@ RENAMED = {
         "train/trainer.py:GuardedAdam",
     ("train/trainer.py", "ZeroIfNotFiniteState"):
         "train/trainer.py:notfinite_count",
+    # the host loop whose step 0 and scan tail the fused loop's step-0 and
+    # tail graphs are (distill/fused.py); with scan_tail or without, the
+    # same numbers as the port's sampler
+    ("diffusion/plms.py", "plms_sample_host"): "diffusion/plms.py:plms_sample",
 }
 
 # (JAX module, name or "*" for the whole module) -> why the port has none
@@ -83,9 +87,6 @@ NO_COUNTERPART = {
     ("parallel/mesh.py", "replicate_to_mesh"): "XLA replication",
     ("parallel/mesh.py", "batch_sharding"): "an XLA sharding spec",
     ("parallel/mesh.py", "replicated_sharding"): "an XLA sharding spec",
-    ("diffusion/plms.py", "plms_sample_host"):
-        "a host-dispatch form of XLA programs; the port's plms_sample is "
-        "the host loop",
     ("nn/vae.py", "swish"): "torch's F.silu",
     ("nn/lpips.py", "convert_lpips_weights"):
         "torch state dicts to a Flax .npz; the port loads the state dicts",

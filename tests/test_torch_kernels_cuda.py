@@ -767,3 +767,143 @@ def test_cuda_scene_batched_field_step():
     with pytest.raises(ValueError, match="table shape"):
         kernels.grid_encode_cuda(x[:2].contiguous(), stack.grid.detach(),
                                  stack.enc)
+
+
+# ---- the fused loop's CUDA graphs (distill/fused.py) ----------------------
+
+def _tiny_loop(fused, max_itr=6):
+    from sparsefusion_tpu_torch.data.synthetic import make_synthetic_scene
+    from sparsefusion_tpu_torch.distill import loop
+    from sparsefusion_tpu_torch.nn.ngp import NGPConfig
+
+    cfg = loop.DistillConfig(
+        max_itr=max_itr, n_aug_cameras=2, num_steps=8, upsample_steps=8,
+        max_ray_batch=256, ngp=NGPConfig(num_levels=4, log2_hashmap_size=10),
+        fused_steps=fused)
+    scene = make_synthetic_scene(n_views=3, image_size=32, seed=0)
+    return loop.distillation_loop(
+        None, scene, [0, 1], cfg,
+        torch.Generator(device="cuda").manual_seed(1), use_diffusion=False,
+        verbose=False)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_input_steps_match_the_eager_loop():
+    """The NGP-only loop as CUDA graphs (the card's default) against the
+    eager loop from one seed: one warm-up, then a capture and five
+    replays (the capture's and four more); the
+    first loss bit-equal (nothing has updated yet), the rest within 1e-3
+    relative (K1's backward adds with atomics, in another order in every
+    run)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode")
+    fused, eager = _tiny_loop(None), _tiny_loop(False)
+    assert eager["fused"] is None
+    assert fused["fused"]["graphs"] and fused["fused"]["warmups"] == 1
+    assert len(fused["fused"]["captures"]) == 1
+    assert fused["fused"]["replays"] == 5
+    assert fused["losses"][0] == eager["losses"][0]
+    np.testing.assert_allclose(fused["losses"], eager["losses"], rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_replayed_graph_draws_the_eager_numbers():
+    """A graph of the renderer's, the ray subset's and the sampler's draws
+    gives, at each replay, the numbers the eager calls give from the same
+    generator state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode")
+    from sparsefusion_tpu_torch.distill.fused import GraphRunner
+
+    dev = torch.device("cuda")
+    gens = [torch.Generator(device=dev).manual_seed(4) for _ in range(2)]
+
+    def draw(g):
+        return [torch.rand((256, 8), generator=g, device=dev),
+                torch.randint(0, 256, (64,), generator=g, device=dev),
+                torch.randn((1, 4, 4, 4), generator=g, device=dev)]
+
+    bufs = [torch.zeros_like(t) for t in draw(torch.Generator(device=dev))]
+
+    def program():
+        for buf, value in zip(bufs, draw(gens[0])):
+            buf.copy_(value)
+
+    runner = GraphRunner(dev, gens[0], [])
+    for i in range(4):
+        runner.run(("draws",), program, i)
+        assert all(torch.equal(b, w) for b, w in zip(bufs, draw(gens[1])))
+    assert (runner.warmups, len(runner.captures), runner.replays) == (1, 1, 3)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_replays_count_their_launches():
+    """K1's launch counter counts each replay's launch, not the capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode")
+    from sparsefusion_tpu_torch.distill.fused import (
+        GraphRunner,
+        launch_counters,
+    )
+
+    dev = torch.device("cuda")
+    enc = make_grid_encoding(**CASES["hash"][0])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((4096, 3), generator=gen, device=dev)
+    table = torch.rand((enc.total_params, enc.level_dim), generator=gen,
+                       device=dev)
+    out = torch.zeros((4096, enc.output_dim), device=dev)
+
+    def program():
+        out.copy_(grid_encode(x, table, enc))
+
+    runner = GraphRunner(dev, gen, launch_counters())
+    kernels.reset_launches()
+    for i in range(5):
+        runner.run(("encode",), program, i)
+    torch.cuda.synchronize()
+    assert kernels.grid_encode_cuda.launches == 5
+    assert runner.replays == 4
+    torch.testing.assert_close(out, grid_encode_plain(x.cpu(), table.cpu(),
+                                                      enc).cuda())
+
+
+@pytest.mark.cuda
+def test_cuda_failed_capture_raises():
+    """A program that reads a value on the host cannot be captured: the
+    capture raises, with no eager fallback.  In a process of its own: a
+    failed capture leaves the CUDA generators registered with it in
+    capture mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode")
+    import subprocess
+    import sys
+    import textwrap
+
+    code = textwrap.dedent("""
+        import torch
+        from sparsefusion_tpu_torch.distill.fused import GraphRunner
+
+        dev = torch.device("cuda")
+        x = torch.ones(8, device=dev)
+        runner = GraphRunner(dev, torch.Generator(device=dev), [])
+
+        def program():
+            if x.sum().item() < 0:
+                x.zero_()
+
+        runner.run(("host read",), program, 0)     # eager: fine
+        try:
+            runner.run(("host read",), program, 1)
+        except RuntimeError as e:
+            assert runner.replays == 0
+            assert torch.cuda.current_stream(dev) == \\
+                torch.cuda.default_stream(dev)
+            print("raised:", type(e).__name__)
+        else:
+            raise SystemExit("the capture did not raise")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and "raised:" in out.stdout, \
+        out.stdout + out.stderr
