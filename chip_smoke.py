@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke check of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels-only | --k1-only] [--csrc DIR]
+    python3 chip_smoke.py [--kernels-only | --k1-only | --train-only]
+                          [--csrc DIR]
 
 f32 matmuls and convolutions run in full f32 throughout (``set_tf32(False)``
 first), except in the TF32 train profile of step 7.
@@ -24,7 +25,9 @@ first), except in the TF32 train profile of step 7.
    with one main-path launch's points, in one launch of each kernel: the
    forward bit-equal to four single launches, the table gradient within
    the backward's tolerance, timed against the four single launches.
-   Beside the forward's time on
+   K1's table gradient on the card test's 65,536 copies of one point,
+   200 launches, each within the f32 summation bound of its 65,536 terms
+   (the error's spread printed).  Beside the forward's time on
    the two chunks: the 32-byte table sectors one launch reads (counted
    with the plain version's index math), per launch and per warp and
    level, and the sectors per second achieved.  The imagen attention kernel
@@ -120,21 +123,32 @@ first), except in the TF32 train profile of step 7.
    batch and draws, in f32 and with the UNet in bf16: loss, every
    gradient, the parameters after the guarded Adam step; then a NaN
    batch, which must leave the parameters bit-identical and count one
-   skipped update.  Then the full-width training main path through
+   skipped update.  The captured step (``train/fused.py``: a CUDA graph
+   per context size) against the eager step on the tiny models, five
+   steps at context sizes 2, 3, 2, 3, 2 in f32 and bf16: draws
+   bit-equal, losses and parameters within ``GRAPH_TOL``, a NaN batch
+   replayed in the graph that moves no parameter and counts one skip.
+   Then the full-width training main path through
    ``sparsefusion_tpu_torch.cli.train.main`` (256 px, diffusion batch
-   12, 2-5 context views), in f32 and with ``--bf16``: 20 steps with a
-   checkpoint at 10 and at the end, then ``--resume`` for 2 more;
-   steps/s over steps 2-20 (host clock, each step ends in a loss read),
-   peak memory, K2 launches == 3 x UNet forwards in each run.  Then 3
-   train steps under ``torch.profiler`` in each of f32, TF32
-   (``set_tf32(True)``) and bf16 (``--bf16``): device ms per step by
-   kernel class (convolutions, matmuls, K2) and by range (EFT, VAE
-   encode, UNet loss, backward, K2's plain backward, guard, Adam),
-   beside the step's bound at its precision (operations counted by
-   ``sparsefusion_tpu_torch.tools.flops``); before each, one step on
-   fixed draws whose loss and gradients are held against the f32 one.
-   Then one full-width visualization grid (64-step ancestral sample),
-   called directly.
+   12, 2-5 context views), in f32 and with ``--bf16``, as on the card by
+   default (a replayed graph a step): 10 steps, a checkpoint,
+   ``--resume`` to step 110; and its eager twin (the eager step in the
+   CLI's place) for 20 steps.  Each pair printed side by side: steps/s
+   between two loss reads (50 and 100; the twin's 0 and 20), syncs a
+   step between reads (sync debug mode; 0 for the graphs), a profiler
+   window's device and host ms a step and idle share, captures and
+   replays, peak memory (allocated, reserved); K2 launches == 3 x UNet
+   forwards in each run.  Then 3 train steps under ``torch.profiler`` in
+   each of f32, TF32 (``set_tf32(True)``) and bf16 (``--bf16``): device
+   ms per step by kernel class (convolutions, matmuls, K2) and by range
+   (EFT, VAE encode, UNet loss, backward, K2's plain backward, guard,
+   Adam), beside the step's bound at its precision (operations counted
+   by ``sparsefusion_tpu_torch.tools.flops``), host ms, idle share and
+   syncs a step; the same step replayed as a graph, profiled the same
+   way; before each, one step on fixed draws whose loss and gradients
+   are held against the f32 one.  Then one full-width visualization grid
+   (64-step ancestral sample), called directly.  (``--train-only``: K1's
+   summation-bound check and this step alone.)
 8. The JAX package's last modules.  Mesh export (``render/mesh.py``)
    from the fields of step 5's two NGP-only demos (16 x C2 f32, and the
    TPU preset's 8 x C4 read in bf16), rebuilt from their returned
@@ -542,6 +556,65 @@ def scene_kernel_phase():
             gen)}
     torch.cuda.empty_cache()
     return times
+
+
+# K1 backward on 65,536 copies of one point (the card test's
+# ``identical_points`` case): launches whose error spread is recorded
+K1_SPREAD_RUNS = 200
+
+
+def k1_summation_bound_check(runs=K1_SPREAD_RUNS):
+    """K1's table gradient on the card test's inputs (65,536 copies of one
+    point, ``CASES["tiled"]``, seed 5), ``runs`` launches, against the
+    double-summed gradient: each launch's largest error, and its largest
+    share of the f32 summation bound, per element, gamma_n * sum_i
+    |w g_i| + 2u |want| (u = 2^-24, n = 65,536 terms summed in any
+    order, gamma_n = n u / (1 - n u); the second term the reference's two
+    roundings).  Fails if a launch exceeds the bound."""
+    from sparsefusion_tpu_torch.kernels import grid_encode as k1
+    from sparsefusion_tpu_torch.ops.grid_encode import (
+        grid_encode_plain,
+        make_grid_encoding,
+    )
+
+    enc = make_grid_encoding(num_levels=4, level_dim=2, base_resolution=4,
+                             log2_hashmap_size=9, per_level_scale=1.9,
+                             gridtype="tiled")
+    torch.manual_seed(5)
+    x = torch.full((65536, 3), 0.4321, device="cuda")
+    table = torch.randn(enc.total_params, enc.level_dim, device="cuda") * 0.5
+    g = torch.randn(x.shape[0], enc.output_dim, device="cuda")
+    tp = table.clone().requires_grad_()
+
+    def plain(gsum):
+        (out,) = torch.autograd.grad(
+            grid_encode_plain(x[:1], tp, enc), tp,
+            gsum.sum(0, keepdim=True).float())
+        return out
+
+    want = plain(g.double())
+    absolute = plain(g.double().abs())
+    u, n = 2.0 ** -24, x.shape[0]
+    bound = n * u / (1 - n * u) * absolute + 2 * u * want.abs()
+    errs, shares = [], []
+    for _ in range(runs):
+        got = k1.grid_encode_cuda_backward(x, g, enc, False)
+        err = (got - want).abs()
+        errs.append(err.max().item())
+        shares.append((err / bound.clamp_min(1e-30)).max().item())
+    scale = want.abs().max().item()
+    stats = {"runs": runs, "max_abs_err": max(errs),
+             "median_abs_err": float(np.median(errs)),
+             "min_abs_err": min(errs),
+             "max_share_of_bound": max(shares),
+             "bound_max": bound.max().item(),
+             "old_test_tolerance": 1e-5 * max(1.0, scale),
+             "runs_over_old_tolerance": sum(
+                 e > 1e-5 * max(1.0, scale) for e in errs)}
+    print("K1 backward on 65,536 copies of one point, error spread: "
+          + json.dumps(stats))
+    assert max(shares) <= 1.0, stats
+    return stats
 
 
 def small_input_step_check():
@@ -2333,69 +2406,335 @@ def _read_counts():
                 attention.imagen_attention_cuda.launches_bf16_wgmma}
 
 
-def train_main_path(counts, bf16=False):
-    """Full-width training through the CLI (``--bf16``: the UNet in bf16):
-    20 steps (checkpoints at 10 and at the end), then --resume for 2 more
-    steps.  ``counts``: the step counts of
-    ``sparsefusion_tpu_torch.tools.flops`` for the bound of the drawn
-    context sizes at the step's precision."""
+# the captured step against the eager one on the card: the first step's
+# loss (equal parameters and draws), every step's loss, each model's
+# parameters after the steps (relative Frobenius).  The parameters part
+# in their last bits after the first update (the EFT's backward adds
+# with atomics, and Adam moves a gradient that is zero but for rounding
+# by lr * sign(g)); in bf16 the later losses follow them at bf16's
+# rounding (2.1e-3 on the H100), held to TRAIN_TOL's bf16 loss tolerance
+GRAPH_TOL = {"float32": {"first_loss": 1e-5, "loss": 1e-5, "param": 1e-4},
+             "bfloat16": {"first_loss": 1e-5, "loss": 1e-2, "param": 1e-3}}
+GRAPH_CONTEXTS = ([1, 2], [1, 2, 3], [2, 4], [2, 3, 4], [1, 3])
+
+
+def small_graph_step_check(compute_dtype="float32"):
+    """The captured train step (``train/fused.py``) against the eager step
+    on the card: the tiny models (``--preset tiny``: K2 at head dim 8),
+    64 px, diffusion batch 2, five steps at context sizes 2, 3, 2, 3, 2
+    (two graphs, three replays), each run from a generator of one seed
+    and on the depth range computed on the device: draws bit-equal, the
+    first step's loss, every loss and each model's parameters after the
+    five steps within ``GRAPH_TOL``.  Then a NaN batch replayed in the graph: parameters
+    bit-identical, one skipped update counted by each optimizer.  K2
+    launches 3 x UNet forwards in the graph run, counted per replay."""
+    from sparsefusion_tpu_torch.cli.train import build_trio, parse_args
+    from sparsefusion_tpu_torch.data.synthetic import make_synthetic_scene
+    from sparsefusion_tpu_torch.train.fused import FusedTrainStep
+    from sparsefusion_tpu_torch.train.trainer import (
+        TrainConfig,
+        make_optimizers,
+        make_train_step,
+        prepare_scene_batch,
+    )
+
+    scene = make_synthetic_scene(n_views=5, image_size=64, seed=0)
+    cfg = TrainConfig(latent_size=8, context_size=3, diffusion_batch_size=2,
+                      compute_dtype=compute_dtype)
+    tol = GRAPH_TOL[compute_dtype]
+
+    def batch(ctx, device):
+        b = prepare_scene_batch([scene], [0], [ctx], device)
+        del b["depth_range"]
+        return b
+
+    runs = {}
+    for kind in ("eager", "graph"):
+        models = build_trio(parse_args(TRAIN_TINY), torch.device("cuda"))
+        with torch.no_grad():   # a zero final conv would hide the UNet
+            models.unet.final_conv.weight.normal_(
+                0.0, 0.1,
+                generator=torch.Generator(device="cuda").manual_seed(1))
+        unet_opt, eft_opt = make_optimizers(cfg, models)
+        step = make_train_step(models, cfg, unet_opt, eft_opt)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        fused = FusedTrainStep(step, gen) if kind == "graph" else None
+        _reset_counts()
+        evals0 = models.unet_evals
+        losses, draws = [], []
+        for ctx in GRAPH_CONTEXTS:
+            if kind == "graph":
+                out = fused(batch(ctx, None))
+            else:
+                out = torch.stack(step(batch(ctx, "cuda"), gen))
+            losses.append(out.tolist())
+            draws.append({k: v.clone() for k, v in step.draws[0].items()})
+        counts = _read_counts()
+        evals = models.unet_evals - evals0
+        params = {f"{name}.{n}": p.detach().clone()
+                  for name, m in (("unet", models.unet), ("eft", models.eft))
+                  for n, p in m.named_parameters()}
+        runs[kind] = {"losses": losses, "draws": draws, "params": params}
+        assert evals == len(GRAPH_CONTEXTS), evals
+        assert counts["imagen_attention"] == 3 * evals, counts
+        assert counts["imagen_attention_bf16"] == (
+            counts["imagen_attention"] if compute_dtype == "bfloat16"
+            else 0), counts
+        if kind == "graph":
+            stats = fused.stats()
+            assert stats["warmups"] == 2 and stats["replays"] == 3, stats
+            assert sorted(c["key"] for c in stats["captures"]) == [2, 3]
+            bad = batch(GRAPH_CONTEXTS[0], None)
+            bad["query_rgb"][..., 0] = float("nan")
+            out = fused(bad)
+            assert not math.isfinite(out[0].item())
+            assert fused.stats()["replays"] == 4
+            assert all(torch.equal(p.detach(), params[f"{name}.{n}"])
+                       for name, m in (("unet", models.unet),
+                                       ("eft", models.eft))
+                       for n, p in m.named_parameters()), \
+                "a NaN batch in the graph moved the parameters"
+            assert unet_opt.notfinite == eft_opt.notfinite == 1
+            runs[kind]["captures"] = stats["captures"]
+        del models, step, fused, unet_opt, eft_opt
+        torch.cuda.empty_cache()
+    eager, graph = runs["eager"], runs["graph"]
+    for a, b in zip(eager["draws"], graph["draws"]):
+        assert all(torch.equal(a[k], b[k]) for k in a), "draws differ"
+    loss_rel = [abs(a[0] - b[0]) / abs(a[0])
+                for a, b in zip(eager["losses"], graph["losses"])]
+    worst = {"first_loss": loss_rel[0], "loss": max(loss_rel),
+             "loss_by_step": loss_rel}
+    for model in ("unet", "eft"):
+        names = [n for n in eager["params"] if n.startswith(model + ".")]
+        pe = torch.cat([eager["params"][n].ravel() for n in names])
+        pg = torch.cat([graph["params"][n].ravel() for n in names])
+        worst[f"{model}_param"] = ((pe - pg).norm() / pe.norm()).item()
+    print(f"tiny train step ({compute_dtype}), graph vs eager over "
+          f"{len(GRAPH_CONTEXTS)} steps: draws bit-equal, worst relative "
+          f"errors {json.dumps(worst)} (tolerances {json.dumps(tol)}); "
+          "a NaN batch replayed: no parameter moved, guard counts 1 / 1")
+    assert worst["first_loss"] <= tol["first_loss"], worst
+    assert worst["loss"] <= tol["loss"], worst
+    assert worst["unet_param"] <= tol["param"], worst
+    assert worst["eft_param"] <= tol["param"], worst
+    return worst
+
+
+class _EagerTrainStep:
+    """The eager step in the train CLI's place of the captured one (the
+    smoke's comparison): the host batch copied to the card, the depth
+    range as host floats, the guard read on the host."""
+
+    def __init__(self, step, generator):
+        self.step, self.generator = step, generator
+
+    def __call__(self, batch):
+        dev = self.generator.device
+        moved = {k: ([c.to(dev) for c in v] if k.endswith(("cam", "cams"))
+                     else v if k == "depth_range" else v.to(dev))
+                 for k, v in batch.items()}
+        return torch.stack(self.step(moved, self.generator))
+
+    def stats(self):
+        return None
+
+
+class _StepProbe(_LoopProbe):
+    """:class:`_LoopProbe` over the train CLI's steps, through its
+    ``step_hook``: syncs, launches and profiler windows by step index."""
+
+    def __enter__(self):
+        import warnings
+
+        self._catch = warnings.catch_warnings(record=True)
+        self._log = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        self._catch.__exit__(*exc)
+        if self._prof is not None:
+            self._prof.stop()
+        return False
+
+
+# the graph run's steps after the resume at step 10: reads at 50 and 100
+GRAPH_TRAIN_STEPS = 110
+EAGER_TRAIN_STEPS = 20
+# profiler windows and sync counts by step index: (a, b) covers steps
+# a + 1 .. b, between the loss reads (every 50 steps and at the end)
+TRAIN_WINDOWS = {"graph": {"steps": (69, 79)}, "eager": {"steps": (5, 10)}}
+TRAIN_SYNC_SPANS = {"graph": (51, 99), "eager": (1, 19)}
+
+
+def train_main_path(counts, bf16=False, graphs=True):
+    """Full-width training through the CLI (``--bf16``: the UNet in bf16).
+    As on the card by default, each step a replayed CUDA graph
+    (``graphs``): 10 steps, a checkpoint, ``--resume`` to step 110, which
+    is measured (loss reads at steps 50 and 100); or the eager step in the
+    CLI's place (``_EagerTrainStep``): 20 steps, measured (reads at step
+    0 and at the end).  Steps/s between two reads (less the probe's own
+    seconds), syncs a step between reads (sync debug mode), a profiler
+    window's device and host ms a step and idle share, the graphs'
+    captures and replays, peak memory of the measured run.  ``counts``:
+    the step counts of ``sparsefusion_tpu_torch.tools.flops`` for the
+    bound of the drawn context sizes at the step's precision."""
+    import gc
+
     from sparsefusion_tpu_torch.cli.train import main as train_main
     from sparsefusion_tpu_torch.tools.flops import step_bound_s
+    from sparsefusion_tpu_torch.train import fused as train_fused
 
+    kind = "graph" if graphs else "eager"
     argv = ["-d", "synthetic", "-c", "any", "--image_size", "256",
-            "--save_itr", "10", "--vis_itr", "0", "--device", "cuda"]
+            "--vis_itr", "0", "--device", "cuda", "--save_itr", "1000"]
     argv += ["--bf16"] if bf16 else []
     precision = "bfloat16" if bf16 else "float32"
-    with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_") as exp_dir:
-        argv += ["--exp_dir", exp_dir]
+    probe = _StepProbe(TRAIN_WINDOWS[kind])
+
+    def run(args, measured):
+        # the last run's graphs and blocks freed, so the peak is this run's
+        gc.collect()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
-        t0 = time.perf_counter()
-        first = train_main(argv + ["--steps", "20"])
-        wall = time.perf_counter() - t0
-        launches = _read_counts()
-        peak = torch.cuda.max_memory_allocated()
-        ckpt = os.path.join(exp_dir, "sf", "any", "ckpt_latest")
-        ckpt_gib = os.path.getsize(ckpt) / 2 ** 30
-        _reset_counts()
-        resumed = train_main(argv + ["--steps", "22", "--resume", ckpt])
-        launches_resumed = _read_counts()
+        if measured:
+            with probe:
+                r = train_main(args, step_hook=probe.hook)
+        else:
+            r = train_main(args)
+        return r, _read_counts(), _peak()
 
-    t = np.asarray(first["step_times"])
-    sizes = first["context_sizes"][1:]
+    original = train_fused.FusedTrainStep
+    if not graphs:
+        train_fused.FusedTrainStep = _EagerTrainStep
+    runs = []
+    try:
+        with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_") as exp_dir:
+            argv += ["--exp_dir", exp_dir]
+            ckpt = os.path.join(exp_dir, "sf", "any", "ckpt_latest")
+            if graphs:
+                runs.append(run(argv + ["--steps", "10"], False))
+                ckpt_gib = os.path.getsize(ckpt) / 2 ** 30
+                runs.append(run(argv + ["--steps", str(GRAPH_TRAIN_STEPS),
+                                        "--resume", ckpt], True))
+            else:
+                runs.append(run(argv + ["--steps", str(EAGER_TRAIN_STEPS)],
+                                True))
+                ckpt_gib = os.path.getsize(ckpt) / 2 ** 30
+    finally:
+        train_fused.FusedTrainStep = original
+
+    # steps/s between two loss reads, less the probe's own seconds there:
+    # the graph run's at steps 50 and 100, the eager run's at step 0 and
+    # at its end
+    r, _, peak = runs[-1]
+    (n_a, t_a), (n_b, t_b) = r["sync_times"][:2]
+    start = r["start_step"]
+    probe_s = sum(sec for i, sec in probe.hook_s.items()
+                  if start + n_a <= i < start + n_b)
+    captures = (r["fused"] or {}).get("captures", [])
+    cap_s = sum(c["seconds"] for c in captures if n_a <= c["itr"] < n_b)
+    sizes = r["context_sizes"][n_a:n_b]
     bound_s = sum(step_bound_s(counts, nc, precision) for nc in sizes)
-    saves = sum(first["checkpoint_seconds"])   # the one at step 10
-    stats = {"steps_per_s": 19 / (t[19] - t[0]),       # steps 2..20
-             "steps_per_s_without_checkpoint": 19 / (t[19] - t[0] - saves),
-             "checkpoint_s": first["checkpoint_seconds"],
-             "step_ms_median": float(np.median(np.diff(t)) * 1e3),
+    sa, sb = TRAIN_SYNC_SPANS[kind]
+    window = probe.window["steps"]
+    stats = {"steps_per_s": (n_b - n_a) / (t_b - t_a - probe_s),
+             "steps_between_reads": [start + n_a, start + n_b],
+             "probe_s_between_reads": probe_s,
+             "capture_s_between_reads": cap_s,
              "bound_steps_per_s": len(sizes) / bound_s,
-             "step_ms_min": float(np.diff(t).min() * 1e3),
-             "step_ms_max": float(np.diff(t).max() * 1e3),
-             "context_sizes": first["context_sizes"],
-             "peak_gib": peak / 2 ** 30, "wall_s": wall,
-             "checkpoint_gib": ckpt_gib, "unet_forwards": first["unet_evals"],
-             "loss_first5": float(np.mean(first["losses"][:5])),
-             "loss_last5": float(np.mean(first["losses"][-5:])),
-             "resumed_at": resumed["start_step"],
-             "resumed_losses": resumed["losses"]}
-    label = f"train main path ({precision})"
+             "syncs_per_step_between_reads": probe.syncs_per_itr(sa, sb),
+             "device_ms_per_step": window["device_ms_per_itr"],
+             "host_ms_per_step": window["host_ms_per_itr"],
+             "idle_share": window["idle_share"],
+             "kernels_per_step": window["kernels_per_itr"],
+             "graphs": [_graph_stats(x) for x, _, _ in runs] if graphs
+             else None,
+             "peak_gib_allocated_reserved": peak,
+             "checkpoint_gib": ckpt_gib,
+             "context_sizes": sum((x["context_sizes"] for x, _, _ in runs),
+                                  []),
+             "unet_forwards": sum(x["unet_evals"] for x, _, _ in runs),
+             "loss_first5": float(np.mean(runs[0][0]["losses"][:5])),
+             "loss_last5": float(np.mean(r["losses"][-5:])),
+             "resumed_at": r["start_step"]}
+    label = f"train main path ({precision}, {kind})"
     print(f"{label}: " + json.dumps(stats))
-    print(f"{label}: launches {json.dumps(launches)}; resumed run "
-          f"{json.dumps(launches_resumed)}")
-    assert len(first["losses"]) == 20 and np.isfinite(first["losses"]).all()
-    assert first["notfinite"] == {"unet": 0, "eft": 0}
-    assert first["params_without_grad"] == 0
-    assert resumed["start_step"] == 20 and len(resumed["losses"]) == 2
-    assert np.isfinite(resumed["losses"]).all()
-    for run, counted in ((first, launches), (resumed, launches_resumed)):
-        assert run["unet_evals"] > 0
+    print(f"{label}: launches " + "; ".join(json.dumps(c) for _, c, _ in runs))
+    lengths = [10, GRAPH_TRAIN_STEPS - 10] if graphs else [EAGER_TRAIN_STEPS]
+    assert [len(x["losses"]) for x, _, _ in runs] == lengths
+    assert r["start_step"] == (10 if graphs else 0)
+    for x, counted, _ in runs:
+        assert np.isfinite(x["losses"]).all()
+        assert x["notfinite"] == {"unet": 0, "eft": 0}
+        assert x["params_without_grad"] == 0
+        assert (x["fused"] is not None) == graphs
+        if graphs:
+            # every context size drawn twice was captured, the rest replayed
+            seen = {c: x["context_sizes"].count(c)
+                    for c in set(x["context_sizes"])}
+            keys = sorted(c["key"] for c in x["fused"]["captures"])
+            assert keys == sorted(c for c, n in seen.items() if n > 1), keys
+            assert x["fused"]["replays"] == sum(n - 1 for n in seen.values()
+                                                if n > 1)
+        assert x["unet_evals"] == len(x["losses"])
         # three attention layers a forward, at a kernel head dim (64)
-        assert counted["imagen_attention"] == 3 * run["unet_evals"], counted
+        assert counted["imagen_attention"] == 3 * x["unet_evals"], counted
         assert counted["imagen_attention_bf16"] == (
             counted["imagen_attention"] if bf16 else 0), counted
-    both = {k: launches[k] + launches_resumed[k] for k in launches}
+    if graphs:
+        assert stats["syncs_per_step_between_reads"] == 0, stats
+    both = {k: sum(c[k] for _, c, _ in runs) for k in runs[0][1]}
     return both, stats
+
+
+def compare_train_paths(precision, graph, eager):
+    """The graph and eager train main paths of one precision, side by
+    side."""
+    keys = ("steps_per_s", "steps_between_reads", "probe_s_between_reads",
+            "capture_s_between_reads", "bound_steps_per_s",
+            "syncs_per_step_between_reads", "device_ms_per_step",
+            "host_ms_per_step", "idle_share", "kernels_per_step",
+            "peak_gib_allocated_reserved", "graphs")
+    print(f"graph vs eager, train main path ({precision}): " + json.dumps(
+        {"graph": {k: graph[k] for k in keys},
+         "eager": {k: eager[k] for k in keys}}))
+
+
+def train_phase():
+    """Step 7: the tiny train step card against CPU and graph against
+    eager, the full-width main paths (graphs, then the eager twin, per
+    precision), the profiles.  Returns (launches by path, profiles)."""
+    from sparsefusion_tpu_torch.tools.flops import train_step_counts
+
+    small_train_step_check()
+    small_train_step_check("bfloat16")
+    small_graph_step_check()
+    small_graph_step_check("bfloat16")
+    _mark("train steps card vs CPU, graph vs eager")
+    counts = train_step_counts()
+    launches = {}
+    for bf16 in (False, True):
+        path = "train_bf16" if bf16 else "train"
+        launches[path], graph = train_main_path(counts, bf16)
+        launches[f"{path}_eager"], eager = train_main_path(
+            counts, bf16, graphs=False)
+        compare_train_paths("bfloat16" if bf16 else "float32", graph, eager)
+    _mark("train main paths, graphs and eager")
+    profiles = {}
+    reference = None
+    for precision in ("float32", "tf32", "bfloat16"):
+        profiles[precision], _, first = train_step_profile(
+            counts, precision, reference)
+        if reference is None:
+            reference = first
+    del reference
+    _mark("train step profiles")
+    return launches, profiles
 
 
 def _kernel_class(name):
@@ -2431,6 +2770,69 @@ def _first_step(step, models, batch, n_context):
     grads = {name: torch.cat([p.grad.ravel() for p in m.parameters()])
              for name, m in (("unet", models.unet), ("eft", models.eft))}
     return loss, grads
+
+
+def _syncs_per_call(run, n_calls):
+    """The host's synchronising CUDA calls a call over ``run()``, which
+    makes ``n_calls`` calls (sync debug mode, each warning counted)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as log:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in log) / n_calls
+
+
+def _graph_step_profile(step, models, scene, n_context, gen):
+    """The profile's step as one replayed CUDA graph
+    (``train/fused.py::FusedTrainStep``, the CLI's step on the card):
+    after its eager run and its capture, ``PROFILE_TRAIN_STEPS`` replays
+    under torch.profiler (device ms a step by kernel class, host ms, idle
+    share), their syncs in sync debug mode, K2's launches a replay."""
+    from sparsefusion_tpu_torch.train.fused import FusedTrainStep
+    from sparsefusion_tpu_torch.train.trainer import prepare_scene_batch
+
+    fused = FusedTrainStep(step, gen)
+    host = prepare_scene_batch([scene], [0], [list(range(1, 1 + n_context))])
+
+    def run(n):
+        for _ in range(n):
+            fused(host)
+
+    run(2)
+    torch.cuda.synchronize()
+    evals0 = []
+
+    def reset():
+        _reset_counts()
+        evals0[:] = [models.unet_evals]
+
+    per_step, _, host_ms = profile_window(
+        lambda: run(PROFILE_TRAIN_STEPS), PROFILE_TRAIN_STEPS, reset=reset)
+    launches = _read_counts()
+    evals = models.unet_evals - evals0[0]
+    device_ms = sum(per_step.values())
+    by_class = {}
+    for name, ms in per_step.items():
+        by_class[_kernel_class(name)] = by_class.get(_kernel_class(name),
+                                                     0.0) + ms
+    stats = {"device_ms_per_step": device_ms, "host_ms_per_step": host_ms,
+             "device_idle_share": max(0.0, 1 - device_ms / host_ms),
+             "syncs_per_step": _syncs_per_call(
+                 lambda: run(PROFILE_TRAIN_STEPS), PROFILE_TRAIN_STEPS),
+             "by_kernel_class": by_class,
+             "k2_launches_per_step": launches["imagen_attention"]
+             / PROFILE_TRAIN_STEPS,
+             "unet_forwards_per_step": evals / PROFILE_TRAIN_STEPS,
+             "graphs": fused.stats()}
+    del fused
+    return stats
 
 
 def train_step_profile(counts, precision="float32", reference=None,
@@ -2527,6 +2929,9 @@ def train_step_profile(counts, precision="float32", reference=None,
             if e.name == label:
                 by_range[key] += ms
     by_range = {k: v / PROFILE_TRAIN_STEPS for k, v in by_range.items()}
+    eager_syncs = _syncs_per_call(lambda: run(PROFILE_TRAIN_STEPS),
+                                  PROFILE_TRAIN_STEPS)
+    graph = _graph_step_profile(step, models, scene, n_context, gen)
     bound_ms = max(counts["adam_bytes"] / HBM_BYTES_PER_S,
                    step_bound_s(counts, n_context, precision)) * 1e3
     bound_by = ("bytes" if counts["adam_bytes"] / HBM_BYTES_PER_S * 1e3
@@ -2535,6 +2940,7 @@ def train_step_profile(counts, precision="float32", reference=None,
              "context_views": n_context, "device_ms_per_step": device_ms,
              "host_ms_per_step": host_ms,
              "device_idle_share": max(0.0, 1 - device_ms / host_ms),
+             "syncs_per_step": eager_syncs, "graph": graph,
              "bound_ms": bound_ms, "bound_by": bound_by,
              "bound_share": bound_ms / device_ms,
              "by_kernel_class": by_class, "by_range": by_range,
@@ -2549,6 +2955,8 @@ def train_step_profile(counts, precision="float32", reference=None,
         print(f"  {ms:8.3f} ms/step ({100 * ms / device_ms:5.1f}%) "
               f"{name[:110]}")
     assert stats["k2_launches_per_step"] == 3 * stats["unet_forwards_per_step"]
+    assert graph["k2_launches_per_step"] == 3 * graph["unet_forwards_per_step"]
+    assert graph["syncs_per_step"] == 0, graph
     assert stats["k2_bf16_launches_per_step"] == (
         stats["k2_launches_per_step"] if precision == "bfloat16" else 0)
     assert by_class.get("k2_forward", 0) > 0
@@ -3037,6 +3445,9 @@ def main(argv=None) -> int:
                              "sources instead of the package's csrc/ (the "
                              "C entry points must match), e.g. to time "
                              "another commit's kernels in the same call")
+    parser.add_argument("--train-only", action="store_true",
+                        help="after the build, run K1's summation-bound "
+                             "check and the training phases (step 7) only")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3068,6 +3479,10 @@ def main(argv=None) -> int:
         assert spills.get(f) == 0, f"{f} spills {spills.get(f)} bytes"
 
     _mark("build")
+    if args.train_only:
+        k1_summation_bound_check()
+        train_phase()
+        return 0
     errs, times = kernel_phase()
     if args.k1_only:
         step_stats = input_step_profile()["reference"]
@@ -3075,6 +3490,7 @@ def main(argv=None) -> int:
                           "input_step": step_stats}))
         return 0
     scene_times = scene_kernel_phase()
+    k1_spread = k1_summation_bound_check()
     _mark("K1 kernel phase")
     attn_err, attn_times, _ = attention_phase(torch.float32)
     bf16_err, bf16_times, bf16_phase_bodies = attention_phase(torch.bfloat16)
@@ -3161,24 +3577,7 @@ def main(argv=None) -> int:
     _mark("LPIPS demo")
     unet_eval_profile()
     _mark("UNet evaluation profile")
-    small_train_step_check()
-    small_train_step_check("bfloat16")
-    _mark("train steps card vs CPU")
-    from sparsefusion_tpu_torch.tools.flops import train_step_counts
-
-    counts = train_step_counts()
-    train_launches, _ = train_main_path(counts)
-    bf16_train_launches, _ = train_main_path(counts, bf16=True)
-    _mark("train main paths")
-    profiles = {}
-    reference = None
-    for precision in ("float32", "tf32", "bfloat16"):
-        profiles[precision], _, first = train_step_profile(
-            counts, precision, reference)
-        if reference is None:
-            reference = first
-    del reference
-    _mark("train step profiles")
+    train_launches, profiles = train_phase()
     from sparsefusion_tpu_torch.distill.loop import (
         DistillConfig,
         tpu_distill_config,
@@ -3193,18 +3592,20 @@ def main(argv=None) -> int:
     perceiver_check()
     _mark("Perceiver resampler")
     print("train step profiles: " + json.dumps({
-        p: {key: s[key] for key in ("device_ms_per_step", "host_ms_per_step",
-                                    "bound_ms", "bound_share",
-                                    "first_step_vs_f32")}
+        p: {**{key: s[key] for key in (
+            "device_ms_per_step", "host_ms_per_step", "device_idle_share",
+            "bound_ms", "bound_share", "first_step_vs_f32")},
+            "graph": {key: s["graph"][key] for key in (
+                "device_ms_per_step", "host_ms_per_step",
+                "device_idle_share", "syncs_per_step")}}
         for p, s in profiles.items()}))
     paths = {"ngp_demo": {"grid_encode_fwd": ngp_launches["grid_encode_fwd"],
                           "grid_encode_bwd": ngp_launches["grid_encode_bwd"]},
-             "diffusion_demo": launches, "train": train_launches,
+             "diffusion_demo": launches, **train_launches,
              "lpips_diffusion_demo": lpips_launches,
              **{f"scene_batch_{kind}": counts
                 for kind, counts in batch_launches.items()},
              "diffusion_demo_bf16_sampler": bf16_launches,
-             "train_bf16": bf16_train_launches,
              "tpu_preset_ngp_demo": tpu_ngp_launches,
              "tpu_preset_diffusion_demo": tpu_launches,
              **{f"parity_sweep_{kind}": {
@@ -3256,7 +3657,8 @@ def main(argv=None) -> int:
          "bound_ms": t["bwd_bound_ms"], "bound_by": "bytes",
          "library_ms": None, "bwd_ms_ray_points": tr["bwd_ms"],
          "bound_ms_ray_points": tr["bwd_bound_ms"],
-         "bwd_ms_one_point": times["ngp_16xC2_f32_one_point"]["bwd_ms"]},
+         "bwd_ms_one_point": times["ngp_16xC2_f32_one_point"]["bwd_ms"],
+         "identical_points_spread": k1_spread},
         _k2_entry("imagen_attention", k2_src, attn_err, attn_times,
                   by_path("imagen_attention", bf16=False),
                   profiles["float32"]),

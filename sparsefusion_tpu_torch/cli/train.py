@@ -13,7 +13,14 @@ the JAX CLI does; the step's own draws come from a ``torch.Generator``
 seeded ``1234 + rank``.  Rank 0 logs every 50 steps, writes a
 visualization grid every ``--vis_itr`` steps and the checkpoint
 ``ckpt_latest`` every ``--save_itr`` steps and at the end; ``--resume``
-continues from one, random states included.  ``--bf16`` runs the UNet in
+continues from one, random states included.  On a CUDA device each step
+is one captured program, replayed (``train/fused.py``: a CUDA graph for
+each context size), as the JAX CLI's step is one jitted program; it
+stays the eager step on the CPU, under ``--debug_nans`` (anomaly mode
+cannot be captured) and under DDP over more than one process.  The
+losses stay on the device and are read, with the guard's count, every
+50 steps, at each checkpoint and at the end, as the JAX CLI reads
+them.  ``--bf16`` runs the UNet in
 bf16 on f32 master parameters (``TrainConfig.compute_dtype``); the
 visualization samples with the f32 UNet, as the JAX CLI's.  f32 matmuls
 and convolutions run in full f32 (TF32 off, ``utils/precision.py``).
@@ -125,16 +132,18 @@ def _visualize(models, scene, query: int, ctx, cfg, path: str, step: int,
         latent_hw=cfg.latent_size)
 
 
-def main(argv=None):
+def main(argv=None, step_hook=None):
     """Train; returns a results dict: per-step losses (``losses``,
-    ``d_losses``, ``color_losses``), host times after each step's loss
-    read (``step_times``) and context sizes (``context_sizes``), the
-    seconds of each checkpoint written during the run
-    (``checkpoint_seconds``),
-    ``start_step``, ``unet_evals`` (UNet forwards
-    of this process), the guard's ``notfinite`` counts and
-    ``params_without_grad`` (UNet and EFT parameters the last step gave no
-    gradient)."""
+    ``d_losses``, ``color_losses``) and context sizes
+    (``context_sizes``), the host clock at the start of the loop
+    (``loop_start``) and at each loss read (``sync_times``: (steps done
+    in this run, seconds)), the seconds of each checkpoint written during
+    the run (``checkpoint_seconds``), ``start_step``, ``unet_evals``
+    (UNet forwards of this process), the guard's ``notfinite`` counts,
+    ``params_without_grad`` (UNet and EFT parameters the last step gave
+    no gradient) and ``fused`` (the graphs' warm-ups, captures and
+    replays; None for the eager step).  ``step_hook``, where given, is
+    called with each step's index once it is dispatched."""
     args = parse_args(argv)
     from sparsefusion_tpu_torch.cli.demo import load_dataset, resolve_device
     from sparsefusion_tpu_torch.models import count_params
@@ -148,6 +157,7 @@ def main(argv=None):
         restore_checkpoint,
         save_checkpoint,
     )
+    from sparsefusion_tpu_torch.train.fused import FusedTrainStep, LossRing
     from sparsefusion_tpu_torch.train.trainer import (
         TrainConfig,
         make_optimizers,
@@ -203,6 +213,13 @@ def main(argv=None):
             generator.set_state(ckpt["rng"][rank]["torch"])
         print(f"resumed from {args.resume} at step {start_step}")
     step_fn = make_train_step(models, cfg, unet_opt, eft_opt)
+    fused = None
+    if device.type == "cuda" and not args.debug_nans:
+        if world == 1:
+            fused = FusedTrainStep(step_fn, generator)
+        elif rank == 0:
+            print(f"DDP over {world} processes: the eager train step (no "
+                  "CUDA graphs over NCCL)")
 
     def checkpoint(n_steps: int) -> None:
         rng = _rng_states(host, generator, world)
@@ -215,10 +232,22 @@ def main(argv=None):
                 "rng": rng})
 
     results = {"start_step": start_step, "losses": [], "d_losses": [],
-               "color_losses": [], "step_times": [], "context_sizes": [],
+               "color_losses": [], "context_sizes": [], "sync_times": [],
                "checkpoint_seconds": []}
+    ring = LossRing(3, device)
+
+    def read_losses(n_done: int) -> list:
+        """The losses of the steps since the last read, in one transfer;
+        returns the last step's."""
+        rows = ring.read()
+        results["sync_times"].append((n_done, time.perf_counter()))
+        for key, column in zip(("losses", "d_losses", "color_losses"),
+                               zip(*rows)):
+            results[key].extend(column)
+        return rows[-1]
+
     n_skipped = notfinite_count(unet_opt)
-    t0 = time.time()
+    results["loop_start"] = time.perf_counter()
     for step in range(start_step, args.steps):
         scene_ids = host.randint(len(dataset), size=1)
         scenes = [dataset[int(s)] for s in scene_ids]
@@ -229,23 +258,28 @@ def main(argv=None):
             pool = list(range(len(s)))
             host.shuffle(pool)
             ctx.append(pool[:cs])
-        batch = prepare_scene_batch(scenes, query, ctx, device)
-        losses = torch.stack(step_fn(batch, generator)).tolist()
-        results["step_times"].append(time.perf_counter())
+        if fused is not None:
+            ring.push(fused(prepare_scene_batch(scenes, query, ctx)))
+        else:
+            batch = prepare_scene_batch(scenes, query, ctx, device)
+            ring.push(torch.stack(step_fn(batch, generator)))
         results["context_sizes"].append(cs)
-        for key, value in zip(("losses", "d_losses", "color_losses"),
-                              losses):
-            results[key].append(value)
+        if step_hook is not None:
+            step_hook(step)
 
-        if step % 50 == 0 and rank == 0:
-            sps = (step - start_step + 1) / (time.time() - t0)
-            print(f"step {step} loss {losses[0]:.4f} ({sps:.2f} steps/s)")
-            skipped = notfinite_count(unet_opt)
-            if skipped > n_skipped:
-                print(f"WARNING: {skipped - n_skipped} update(s) skipped "
-                      f"on non-finite grads (total {skipped}); last batch "
-                      f"scenes {list(map(int, scene_ids))}")
-                n_skipped = skipped
+        if step % 50 == 0:
+            losses = read_losses(step - start_step + 1)
+            if rank == 0:
+                sps = (step - start_step + 1) / (time.perf_counter()
+                                                 - results["loop_start"])
+                print(f"step {step} loss {losses[0]:.4f} ({sps:.2f} "
+                      "steps/s)")
+                skipped = notfinite_count(unet_opt)
+                if skipped > n_skipped:
+                    print(f"WARNING: {skipped - n_skipped} update(s) "
+                          f"skipped on non-finite grads (total {skipped}); "
+                          f"last batch scenes {list(map(int, scene_ids))}")
+                    n_skipped = skipped
 
         if args.vis_itr > 0 and step % args.vis_itr == 0 and step > 0 \
                 and rank == 0:
@@ -257,6 +291,8 @@ def main(argv=None):
             except Exception as e:  # vis must never kill training
                 print("vis failed:", repr(e))
         if step % args.save_itr == 0 and step > 0:
+            if ring.n:
+                read_losses(step - start_step + 1)
             t_save = time.perf_counter()
             checkpoint(step + 1)
             results["checkpoint_seconds"].append(
@@ -264,6 +300,8 @@ def main(argv=None):
             if rank == 0:
                 print("saving model at step", step)
 
+    if ring.n:
+        read_losses(args.steps - start_step)
     checkpoint(max(args.steps, start_step))
     results.update(
         unet_evals=models.unet_evals,
@@ -271,7 +309,8 @@ def main(argv=None):
                    "eft": notfinite_count(eft_opt)},
         params_without_grad=sum(
             p.grad is None for opt in (unet_opt, eft_opt) if opt is not None
-            for p in opt.params))
+            for p in opt.params),
+        fused=None if fused is None else fused.stats())
     return results
 
 

@@ -24,9 +24,12 @@ def harmonic_frequencies(n_harmonic_functions: int = 6, omega_0: float = 1.0,
 def harmonic_embedding(x: torch.Tensor, frequencies,
                        append_input: bool = True) -> torch.Tensor:
     """Embed ``x`` (..., D) -> (..., D * (2 * n_freqs + append_input)):
-    [sin(f_i * x_d) interleaved per input dim, then cos, then x]."""
-    freqs = torch.as_tensor(np.asarray(frequencies), dtype=x.dtype,
-                            device=x.device)
+    [sin(f_i * x_d) interleaved per input dim, then cos, then x].
+    ``frequencies``: an array, or a tensor (used as it is where it has
+    ``x``'s device and dtype)."""
+    if not isinstance(frequencies, torch.Tensor):
+        frequencies = torch.as_tensor(np.asarray(frequencies))
+    freqs = frequencies.to(dtype=x.dtype, device=x.device)
     embed = (x[..., None] * freqs).reshape(*x.shape[:-1], -1)
     parts = [embed.sin(), embed.cos()]
     if append_input:
@@ -36,14 +39,22 @@ def harmonic_embedding(x: torch.Tensor, frequencies,
 
 @dataclasses.dataclass(frozen=True)
 class HarmonicEmbedding:
-    """(..., D) -> (..., D * (2 * n_harmonic_functions + append_input))."""
+    """(..., D) -> (..., D * (2 * n_harmonic_functions + append_input)).
+    The frequencies are made once for each device and dtype: a copy from
+    the host on every call could not be captured in a CUDA graph."""
 
     n_harmonic_functions: int = 6
     omega_0: float = 1.0
     logspace: bool = True
     append_input: bool = True
+    _freqs: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False, compare=False)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        return harmonic_embedding(
-            x, harmonic_frequencies(self.n_harmonic_functions, self.omega_0,
-                                    self.logspace), self.append_input)
+        key = (x.device, x.dtype)
+        if key not in self._freqs:
+            self._freqs[key] = torch.as_tensor(
+                harmonic_frequencies(self.n_harmonic_functions,
+                                     self.omega_0, self.logspace),
+                dtype=x.dtype, device=x.device)
+        return harmonic_embedding(x, self._freqs[key], self.append_input)

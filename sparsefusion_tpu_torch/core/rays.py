@@ -11,7 +11,7 @@ xy draws come from an explicit ``torch.Generator``, or are passed in.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -35,16 +35,43 @@ def ray_points(bundle: RayBundle) -> torch.Tensor:
             + bundle.directions[..., None, :] * bundle.lengths[..., :, None])
 
 
+Depth = Union[float, torch.Tensor]
+
+
+def depth_linspace(min_depth: Depth, max_depth: Depth, n: int,
+                   dtype=torch.float32, device=None) -> torch.Tensor:
+    """``torch.linspace(min_depth, max_depth, n)``.  The ends are floats,
+    or 0-d tensors on ``device`` (the train step's depth range, computed
+    on the device): ``torch.linspace`` would read those on the host, so
+    their points are made by device operations, with the formula of
+    PyTorch's linspace kernels (from the start below the midpoint, from
+    the end above it).  Within one ulp of the larger end's magnitude of
+    ``torch.linspace`` on the same ends (its vectorised CPU loop rounds
+    in another order), not bit-equal."""
+    if not isinstance(min_depth, torch.Tensor) \
+            and not isinstance(max_depth, torch.Tensor):
+        return torch.linspace(min_depth, max_depth, n, dtype=dtype,
+                              device=device)
+    lo = torch.as_tensor(min_depth, dtype=dtype, device=device)
+    hi = torch.as_tensor(max_depth, dtype=dtype, device=device)
+    if n == 1:
+        return lo.reshape(1)
+    i = torch.arange(n, dtype=dtype, device=device)
+    step = (hi - lo) / (n - 1)
+    return torch.where(i < n // 2, lo + step * i, hi - step * (n - 1 - i))
+
+
 def xy_to_ray_bundle(cameras: Cameras, xy_grid: torch.Tensor,
-                     min_depth: float, max_depth: float,
+                     min_depth: Depth, max_depth: Depth,
                      n_pts_per_ray: int) -> RayBundle:
-    """PyTorch3D ``_xy_to_ray_bundle``; xy_grid is (N, ..., 2) NDC xys."""
+    """PyTorch3D ``_xy_to_ray_bundle``; xy_grid is (N, ..., 2) NDC xys;
+    the depths floats or 0-d tensors (:func:`depth_linspace`)."""
     n = xy_grid.shape[0]
     spatial = xy_grid.shape[1:-1]
     xy_flat = xy_grid.reshape(n, -1, 2)
     p = xy_flat.shape[1]
 
-    depths = torch.linspace(min_depth, max_depth, n_pts_per_ray,
+    depths = depth_linspace(min_depth, max_depth, n_pts_per_ray,
                             dtype=xy_grid.dtype, device=xy_grid.device)
     lengths = depths.expand(n, p, n_pts_per_ray)
 
@@ -75,7 +102,8 @@ def grid_xys(image_height: int, image_width: int, min_x: float, max_x: float,
 
 @dataclasses.dataclass(frozen=True)
 class GridRaysampler:
-    """Fixed-shape grid ray sampler (pytorch3d GridRaysampler semantics)."""
+    """Fixed-shape grid ray sampler (pytorch3d GridRaysampler semantics);
+    the depths floats or 0-d tensors (:func:`depth_linspace`)."""
 
     min_x: float
     max_x: float
@@ -84,8 +112,8 @@ class GridRaysampler:
     image_height: int
     image_width: int
     n_pts_per_ray: int
-    min_depth: float
-    max_depth: float
+    min_depth: Depth
+    max_depth: Depth
 
     def __call__(self, cameras: Cameras) -> RayBundle:
         xy = grid_xys(self.image_height, self.image_width, self.min_x,
@@ -131,9 +159,10 @@ class MonteCarloRaysampler:
 
 
 def grid_ray_bundle(cameras: Cameras, image_height: int, image_width: int,
-                    n_pts_per_ray: int, min_depth: float,
-                    max_depth: float) -> RayBundle:
-    """Grid rays with the reference's reversed half-pixel bounds."""
+                    n_pts_per_ray: int, min_depth: Depth,
+                    max_depth: Depth) -> RayBundle:
+    """Grid rays with the reference's reversed half-pixel bounds; the
+    depths floats or 0-d tensors (:func:`depth_linspace`)."""
     half_w = 1.0 / image_width
     half_h = 1.0 / image_height
     sampler = GridRaysampler(

@@ -98,11 +98,14 @@ class DDPM:
                  cond_images: Optional[torch.Tensor] = None,
                  loss_mask: Optional[torch.Tensor] = None,
                  noise: Optional[torch.Tensor] = None,
-                 keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 keep_mask: Optional[torch.Tensor] = None,
+                 drawn: Optional[dict] = None) -> torch.Tensor:
         """Masked eps-prediction loss, mean per sample, p2-weighted by
         ``(k + exp(log_snr)) ** -gamma``, then the batch mean.  ``noise``
         (like ``x_start``) and the conditioning ``keep_mask`` (B,) bool
-        are drawn from ``generator`` (in that order) where not given."""
+        are drawn from ``generator`` (in that order) where not given;
+        ``drawn``, where given, receives the two as ``noise`` and
+        ``keep``."""
         cfg = self.config
         sched = self.schedule
         b = x_start.shape[0]
@@ -113,6 +116,8 @@ class DDPM:
             keep_mask = torch.rand(b, generator=generator,
                                    device=x_start.device) \
                 < 1.0 - cfg.cond_drop_prob
+        if drawn is not None:
+            drawn.update(noise=noise, keep=keep_mask)
         pred = denoise_fn(x_noisy, sched.get_condition(times), cond_images,
                           keep_mask)
 

@@ -31,9 +31,11 @@ on the device.  The sampler's state (latents, the ring of the three last
 epsilons, the times from ``max_thres``, the step index, the fusion
 weight) lives in buffers made at a program's first run, which is eager.
 
-On a CUDA device a key's first run is eager, on a side stream: it is
-the iteration's real work and the warm-up that builds the kernels, the
-optimizer's state and the libraries' handles.  Its second run captures
+The graphs run through ``utils/graphs.py::GraphRunner``, which the
+train step's graphs share.  On a CUDA device a key's first run is
+eager, on a side stream: it is the iteration's real work and the
+warm-up that builds the kernels, the optimizer's state and the
+libraries' handles.  Its second run captures
 (the loop's generator registered with the graph, so that every replay
 draws fresh numbers, in the order the eager steps draw them) and then
 replays; later runs replay.  Each graph has a memory pool of its own:
@@ -51,8 +53,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
 
@@ -65,105 +66,16 @@ from sparsefusion_tpu_torch.diffusion.plms import (
     plms_step0,
     plms_tail_step,
 )
-
-
-def launch_counters(models=None) -> List[Tuple[object, str]]:
-    """The Python counts that a replayed graph must advance: the kernels'
-    launch counters and, with ``models``, its UNet evaluations."""
-    from sparsefusion_tpu_torch.kernels import attention, grid_encode
-    from sparsefusion_tpu_torch.kernels import row_gather
-
-    counters = [(grid_encode.grid_encode_cuda, a)
-                for a in ("launches", "scenes", "launches_bf16")]
-    counters += [(grid_encode.grid_encode_cuda_backward, a)
-                 for a in ("launches", "scenes")]
-    counters += [(attention.imagen_attention_cuda, a) for a in (
-        "launches", "launches_bf16", "launches_bf16_wgmma")]
-    counters.append((row_gather.row_gather_cuda, "launches"))
-    if models is not None:
-        counters.append((models, "unet_evals"))
-    return counters
-
-
-class GraphRunner:
-    """Runs programs under static keys: on a CUDA device eagerly the first
-    time, captured into a CUDA graph the second, replayed from then on;
-    on any other device eagerly every time."""
-
-    def __init__(self, device: torch.device, generator: torch.Generator,
-                 counters: List[Tuple[object, str]]):
-        self.graphs = device.type == "cuda"
-        self.device = device
-        self.generator = generator
-        self.counters = counters
-        self._captured: Dict[tuple, Tuple[torch.cuda.CUDAGraph, list]] = {}
-        self._warm = set()
-        self.warmups = 0
-        self.replays = 0
-        self.captures: List[dict] = []
-        if self.graphs:
-            self._stream = torch.cuda.Stream(device)
-
-    def _read(self) -> list:
-        return [getattr(o, a) for o, a in self.counters]
-
-    def run(self, key: tuple, program, itr: int) -> None:
-        if not self.graphs:
-            program()
-            return
-        entry = self._captured.get(key)
-        if entry is None:
-            if key not in self._warm:
-                self._warm.add(key)
-                self.warmups += 1
-                current = torch.cuda.current_stream(self.device)
-                self._stream.wait_stream(current)
-                with torch.cuda.stream(self._stream):
-                    program()
-                current.wait_stream(self._stream)
-                return
-            entry = self._capture(key, program, itr)
-        graph, counted = entry
-        graph.replay()
-        for (owner, attr), n in zip(self.counters, counted):
-            setattr(owner, attr, getattr(owner, attr) + n)
-        self.replays += 1
-
-    def _capture(self, key, program, itr):
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
-        before = self._read()
-        current = torch.cuda.current_stream(self.device)
-        torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph, stream=self._stream):
-                program()
-        except BaseException:
-            # a failed capture's exit leaves the capture stream current
-            torch.cuda.set_stream(current)
-            raise
-        torch.cuda.synchronize(self.device)
-        seconds = time.perf_counter() - t0
-        after = self._read()
-        # the capture launched nothing; each replay adds what it counted
-        for (owner, attr), n in zip(self.counters, before):
-            setattr(owner, attr, n)
-        entry = (graph, [a - b for a, b in zip(after, before)])
-        self._captured[key] = entry
-        self.captures.append({"key": _key_name(key), "itr": itr,
-                              "seconds": seconds})
-        return entry
+from sparsefusion_tpu_torch.utils.graphs import (
+    GraphRunner,
+    capturing,
+    launch_counters,
+)
 
 
 def _key_name(key: tuple) -> str:
     return "/".join(("march" if k.march_steps else "two_phase")
                     if hasattr(k, "march_steps") else str(k) for k in key)
-
-
-def _capturing() -> bool:
-    return torch.cuda.is_available() and \
-        torch.cuda.is_current_stream_capturing()
 
 
 def _gather(cams: Cameras, idx: torch.Tensor) -> Cameras:
@@ -215,7 +127,7 @@ class FusedIterations:
         (eager) run of the program that writes it."""
         buf = self.buffers.get(name)
         if buf is None:
-            if _capturing():
+            if capturing():
                 raise RuntimeError(f"buffer {name!r} first made inside a "
                                    "capture")
             buf = self.buffers[name] = torch.zeros_like(like)
@@ -341,7 +253,7 @@ class FusedIterations:
             # read the saved tensors that the front graph's replays write
             loss = steps.apply_update(
                 steps.fusion_full_losses(img, sil, pred_img, weight),
-                retain_graph=_capturing())
+                retain_graph=capturing())
         self.floss.copy_(loss)
 
     # ---- one iteration --------------------------------------------------
@@ -376,4 +288,6 @@ class FusedIterations:
         """Warm-ups, captures (key, iteration, seconds) and replays."""
         r = self.runner
         return {"graphs": r.graphs, "warmups": r.warmups,
-                "captures": list(r.captures), "replays": r.replays}
+                "captures": [dict(c, key=_key_name(c["key"]))
+                             for c in r.captures],
+                "replays": r.replays}

@@ -92,6 +92,7 @@ from sparsefusion_tpu_torch.render.volume import (
     VolumeRendererConfig,
     render_rays_chunked,
 )
+from sparsefusion_tpu_torch.utils.graphs import TensorStepLR
 from sparsefusion_tpu_torch.utils.image import huber, to_uint8
 from sparsefusion_tpu_torch.utils.metrics import psnr, ssim
 
@@ -190,47 +191,6 @@ def tpu_distill_config(**overrides) -> DistillConfig:
     )
     base.update(overrides)
     return DistillConfig(**base)
-
-
-class TensorStepLR:
-    """``StepLR``'s staircase on 0-d float32 learning-rate tensors
-    (``lrs``, one a base rate): every :meth:`step` moves the rates to
-    ``base * gamma ** (n // step_size)`` after n steps, with device
-    operations only (a counter, a division and a gather from a table of
-    the staircase's values), so that a CUDA graph holding an optimizer
-    update replays the tick too.  The table holds the values ``StepLR``
-    chains in double precision from the float bases, rounded to float32,
-    until they reach 0 or infinity there (or at once for ``gamma`` 1);
-    later steps stay on the last one."""
-
-    MAX_LEVELS = 4096
-
-    def __init__(self, bases, step_size: int, gamma: float, device=None):
-        self.step_size = int(step_size)
-        columns = []
-        for value in map(float, bases):
-            col = []
-            while len(col) < self.MAX_LEVELS:
-                col.append(value)
-                if gamma == 1.0 or not 0 < abs(np.float32(value)) < np.inf:
-                    break
-                value *= gamma
-            columns.append(col)
-        levels = max(len(c) for c in columns)
-        self.table = torch.tensor(
-            [c + [c[-1]] * (levels - len(c)) for c in columns],
-            dtype=torch.float32, device=device)          # (groups, levels)
-        self.lrs = [self.table[g, 0].clone() for g in range(len(columns))]
-        self.count = torch.zeros((1,), dtype=torch.int64, device=device)
-
-    def step(self) -> None:
-        self.count += 1
-        level = torch.clamp(torch.div(self.count, self.step_size,
-                                      rounding_mode="floor"),
-                            max=self.table.shape[1] - 1)
-        rates = self.table.index_select(1, level)
-        for g, lr in enumerate(self.lrs):
-            lr.copy_(rates[g, 0])
 
 
 class NGPOptimizer:

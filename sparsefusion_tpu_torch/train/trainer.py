@@ -15,7 +15,13 @@ for each scene of its batch:
   query image at the rays' pixels.
 
 The losses are averaged over the scenes; the UNet (and EFT) take an Adam
-step behind the non-finite guard (:class:`GuardedAdam`).  With
+step behind the non-finite guard (:class:`GuardedAdam`).
+:meth:`TrainStep.program` is the same step as one program with no host
+read, as the JAX step is one jitted program: the depth range computed on
+the device from the context cameras, the guard's flag handed to the
+fused Adam on the device; ``train/fused.py`` captures it into CUDA
+graphs.  Calling the :class:`TrainStep` runs the eager step, whose guard
+reads its flag on the host.  With
 ``compute_dtype="bfloat16"`` the UNet computes in bf16 on its f32 master
 parameters (``models.py::unet_compute_view``); the EFT, the VAE, the
 loss, the gradients and Adam stay f32, as in the JAX step.
@@ -49,6 +55,7 @@ from sparsefusion_tpu_torch.core.cameras import (
 from sparsefusion_tpu_torch.core.rays import grid_ray_bundle
 from sparsefusion_tpu_torch.models import unet_compute_view
 from sparsefusion_tpu_torch.ops.image import grid_sample_bilinear, resize_bilinear
+from sparsefusion_tpu_torch.utils.graphs import TensorStepLR
 from sparsefusion_tpu_torch.utils.image import huber
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -86,16 +93,31 @@ class GuardedAdam:
     JAX guard freezes), the optimizer state untouched.  The step is counted
     in :attr:`notfinite`; unlike ``optax.apply_if_finite`` the guard never
     gives up.
+
+    The Adam is PyTorch's fused one on a 0-d learning-rate tensor that a
+    :class:`TensorStepLR` ticks, and the count of skipped steps is a
+    device tensor, so that the whole update can run inside a CUDA graph:
+    :meth:`step` takes the guard's verdict from the host,
+    :meth:`step_on_device` its flag on the device (the fused Adam leaves
+    parameters, moments and step count unchanged where its ``found_inf``
+    is 1, and the staircase and the count advance by the flag).
     """
 
     def __init__(self, params, lr: float, cfg: TrainConfig):
         self.params = list(params)
-        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999),
-                                     eps=1e-8)
-        self.schedule = torch.optim.lr_scheduler.StepLR(
-            self.adam, step_size=cfg.lr_decay_step, gamma=cfg.lr_decay_gamma)
+        device = self.params[0].device
+        self.schedule = TensorStepLR([lr], cfg.lr_decay_step,
+                                     cfg.lr_decay_gamma, device)
+        self.adam = torch.optim.Adam(
+            [{"params": self.params, "lr": self.schedule.lrs[0]}],
+            betas=(0.9, 0.999), eps=1e-8, fused=True, capturable=True)
         self.guard = cfg.guard_nonfinite
-        self.notfinite = 0
+        self.skipped = torch.zeros((), dtype=torch.int64, device=device)
+
+    @property
+    def notfinite(self) -> int:
+        """Updates skipped by the guard (a host read)."""
+        return int(self.skipped)
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
@@ -115,11 +137,27 @@ class GuardedAdam:
     def step(self, finite: bool) -> bool:
         """Apply the update unless the guard holds it; True if applied."""
         if self.guard and not finite:
-            self.notfinite += 1
+            self.skipped += 1
             return False
         self.adam.step()
         self.schedule.step()
         return True
+
+    def step_on_device(self, flag: Optional[torch.Tensor]) -> None:
+        """The guarded update with no host read: ``flag`` is
+        :meth:`nonfinite_flag`'s (None: apply).  Nothing multiplies by the
+        flag, so a NaN gradient reaches no parameter and no moment."""
+        if flag is None:
+            self.adam.step()
+            self.schedule.step()
+            return
+        self.adam.found_inf = flag.reshape(())
+        try:
+            self.adam.step()
+        finally:
+            self.adam.found_inf = None
+        self.schedule.step(flag)
+        self.skipped += flag.reshape(()).to(torch.int64)
 
     def state_dict(self) -> Dict:
         return {"adam": self.adam.state_dict(),
@@ -127,9 +165,14 @@ class GuardedAdam:
                 "notfinite": self.notfinite}
 
     def load_state_dict(self, state: Dict) -> None:
+        """Copy a state in: the Adam's moments and steps, the staircase's
+        count and the guard's count (the learning rate stays the
+        schedule's tensor)."""
         self.adam.load_state_dict(state["adam"])
+        for group in self.adam.param_groups:
+            group["lr"] = self.schedule.lrs[0]
         self.schedule.load_state_dict(state["schedule"])
-        self.notfinite = int(state["notfinite"])
+        self.skipped.fill_(int(state["notfinite"]))
 
 
 def make_optimizers(cfg: TrainConfig, models
@@ -146,12 +189,21 @@ def notfinite_count(opt: Optional[GuardedAdam]) -> int:
     return 0 if opt is None else opt.notfinite
 
 
-def scene_depth_range_from_cam(cameras: Cameras) -> Tuple[float, float]:
-    """Near and far: the mean norm of ``-T R`` (the JAX package's and the
-    reference's expression) minus and plus 5."""
+def scene_depth_range(cameras: Cameras
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Near and far as 0-d tensors on the cameras' device: the mean norm
+    of ``-T R`` (the JAX package's and the reference's expression) minus
+    and plus 5, computed on the device as the JAX step computes it inside
+    its program."""
     centers = -torch.einsum("ni,nij->nj", cameras.T, cameras.R)
-    dist = float(torch.linalg.norm(centers, dim=-1).mean())
+    dist = torch.linalg.norm(centers, dim=-1).mean()
     return dist - 5.0, dist + 5.0
+
+
+def scene_depth_range_from_cam(cameras: Cameras) -> Tuple[float, float]:
+    """:func:`scene_depth_range` as host floats."""
+    near, far = scene_depth_range(cameras)
+    return float(near), float(far)
 
 
 def prepare_scene_batch(scenes, query_idx: Sequence[int],
@@ -161,7 +213,8 @@ def prepare_scene_batch(scenes, query_idx: Sequence[int],
     ``device``: query and context images (NHWC), the query's valid
     region, and per scene the query and context cameras relative to the
     query's rotation (``center_at_origin=False``) and the context's depth
-    range (computed on the host)."""
+    range (computed on the host, for the eager step; the program computes
+    it on the device)."""
     q_rgb, q_valid, q_cam, c_rgb, c_cams, ranges = [], [], [], [], [], []
     for scene, qi, ci in zip(scenes, query_idx, context_idx):
         rel = get_relative_cameras(scene.cameras(), [qi],
@@ -207,9 +260,11 @@ class TrainStep:
     ``draws``, where given, holds one dict per scene with the step's random
     numbers: ``times`` (dbs,), ``noise`` (dbs, 4, h, w) and ``keep``
     (dbs,) bool; otherwise they come from ``generator`` (times, noise, keep
-    mask, scene by scene).  With ``torch.distributed`` initialised over
-    more than one process the UNet (and a trained EFT) run inside
-    ``DistributedDataParallel``.
+    mask, scene by scene).  :attr:`draws` holds the last step's, a dict
+    per scene.  With ``torch.distributed`` initialised over more than one
+    process the UNet (and a trained EFT) run inside
+    ``DistributedDataParallel``.  :meth:`program` is the step with no
+    host read.
     """
 
     def __init__(self, models, cfg: TrainConfig, unet_opt: GuardedAdam,
@@ -221,6 +276,7 @@ class TrainStep:
         self.models = models
         self.cfg = cfg
         self.opts = [unet_opt] + ([eft_opt] if cfg.train_eft else [])
+        self.draws: List[Dict] = []
         # in bf16, the UNet's network in bf16 over its own f32 parameters
         dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         self.unet = (models.unet if dtype == torch.float32
@@ -246,13 +302,18 @@ class TrainStep:
     def scene_losses(self, batch: Dict, i: int,
                      generator: Optional[torch.Generator] = None,
                      draws: Optional[Dict] = None):
-        """(loss, d_loss, color_loss) of scene ``i`` of ``batch``."""
+        """(loss, d_loss, color_loss) of scene ``i`` of ``batch``; the
+        depth range is the batch's ``depth_range`` (host floats) where it
+        has one, else computed on the device from the context cameras."""
         cfg, models = self.cfg, self.models
         draws = draws or {}
         hw, dbs = cfg.latent_size, cfg.diffusion_batch_size
         q_rgb = batch["query_rgb"][i]
         q_valid = batch["query_valid"][i]
-        min_d, max_d = batch["depth_range"][i]
+        if "depth_range" in batch:
+            min_d, max_d = batch["depth_range"][i]
+        else:
+            min_d, max_d = scene_depth_range(batch["context_cams"][i])
 
         with record_function("train/eft"), \
                 torch.set_grad_enabled(cfg.train_eft):
@@ -278,11 +339,13 @@ class TrainStep:
         times = draws.get("times")
         if times is None:
             times = models.ddpm.schedule.sample_random_times(dbs, generator)
+        drawn = {"times": times}
+        self.draws.append(drawn)
         with record_function("train/unet_loss"):
             d_loss = models.ddpm.p_losses(
                 self._denoise, z_b, times, generator, cond_images=feat_b,
                 loss_mask=loss_mask, noise=draws.get("noise"),
-                keep_mask=draws.get("keep"))
+                keep_mask=draws.get("keep"), drawn=drawn)
 
         color_loss = torch.zeros((), device=d_loss.device)
         if cfg.train_eft:
@@ -291,11 +354,17 @@ class TrainStep:
             color_loss = (huber(rgb, gt) * mask).abs().mean()
         return d_loss + color_loss, d_loss, color_loss
 
-    def __call__(self, batch: Dict, generator: Optional[torch.Generator] = None,
-                 draws: Optional[List[Dict]] = None):
+    def losses_and_gradients(self, batch: Dict,
+                             generator: Optional[torch.Generator] = None,
+                             draws: Optional[List[Dict]] = None
+                             ) -> torch.Tensor:
+        """The trained models' gradients of the batch's mean loss (in
+        ``.grad``) and the (3,) means (loss, d_loss, color_loss),
+        detached."""
         n = batch["query_rgb"].shape[0]
         for opt in self.opts:
             opt.zero_grad()
+        self.draws = []
         sums = torch.zeros(3, device=batch["query_rgb"].device)
         for i in range(n):
             losses = self.scene_losses(batch, i, generator,
@@ -308,6 +377,11 @@ class TrainStep:
                         stack.enter_context(module.no_sync())
                 (losses[0] / n).backward()
             sums += torch.stack([x.detach() for x in losses])
+        return sums / n
+
+    def __call__(self, batch: Dict, generator: Optional[torch.Generator] = None,
+                 draws: Optional[List[Dict]] = None):
+        means = self.losses_and_gradients(batch, generator, draws)
         with record_function("train/guard"):
             if any(opt.guard for opt in self.opts):
                 # one device reduction per optimizer, one host read
@@ -318,8 +392,26 @@ class TrainStep:
         with record_function("train/adam"):
             for opt, ok in zip(self.opts, finite):
                 opt.step(ok)
-        loss, d_loss, color_loss = sums / n
+        loss, d_loss, color_loss = means
         return loss, d_loss, color_loss
+
+    def program(self, batch: Dict, generator: Optional[torch.Generator] = None,
+                draws: Optional[List[Dict]] = None) -> torch.Tensor:
+        """The step with no host read, as the JAX step's one program: the
+        (3,) means (loss, d_loss, color_loss) on the device.  The depth
+        range comes from the context cameras on the device where
+        ``batch`` has no host ``depth_range``, the draws from
+        ``generator`` in the eager step's order, and each optimizer takes
+        its guarded update on the device (:meth:`GuardedAdam.step_on_device`).
+        ``train/fused.py`` captures it into CUDA graphs."""
+        means = self.losses_and_gradients(batch, generator, draws)
+        with record_function("train/guard"):
+            flags = [opt.nonfinite_flag() if opt.guard else None
+                     for opt in self.opts]
+        with record_function("train/adam"):
+            for opt, flag in zip(self.opts, flags):
+                opt.step_on_device(flag)
+        return means
 
 
 def make_train_step(models, cfg: TrainConfig, unet_opt: GuardedAdam,

@@ -27,9 +27,10 @@ def test_port_loads_no_jax_in_a_fresh_process():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules, *names = proc.stdout.split()[:-1]
     assert int(n_modules) >= 20
-    # the last slice's modules among them
+    # the last slices' modules among them
     for name in ("render.mesh", "tools.make_toy_fixture",
-                 "tools.parity_sweep", "nn.layers"):
+                 "tools.parity_sweep", "nn.layers", "train.fused",
+                 "utils.graphs"):
         assert f"sparsefusion_tpu_torch.{name}" in names, name
 
 

@@ -140,11 +140,14 @@ def _grad_state_dict(module):
 
 def check_train_step_against_jax(train_eft, n_scenes,
                                  compute_dtype="float32", loss_rel=1e-5,
-                                 grad_rel=1e-3):
+                                 grad_rel=1e-3, program=False):
     """One step of each package from the same weights, scenes and draws:
     losses (to ``loss_rel``), gradients (to ``grad_rel``, Frobenius over
-    each model), and the port's updates applied.  Returns the worst
-    relative errors seen and the port's models and optimizers."""
+    each model), and the port's updates applied.  With ``program`` the
+    port runs ``TrainStep.program`` (the depth range computed from the
+    context cameras, the guard on the device) in place of the eager
+    step.  Returns the worst relative errors seen and the port's models
+    and optimizers."""
     models = _port_models()
     jmodels = _jax_models(models)
     jscenes, tscenes = _scenes(n_scenes)
@@ -174,9 +177,13 @@ def check_train_step_against_jax(train_eft, n_scenes,
     unet_opt, eft_opt = trainer.make_optimizers(cfg, models)
     step = trainer.make_train_step(models, cfg, unet_opt, eft_opt)
     evals0 = models.unet_evals
-    loss, d_loss, color_loss = step(
-        trainer.prepare_scene_batch(tscenes, query, ctx),
-        draws=_replay_draws(jmodels.ddpm, key, n_scenes))
+    batch = trainer.prepare_scene_batch(tscenes, query, ctx)
+    draws = _replay_draws(jmodels.ddpm, key, n_scenes)
+    if program:
+        del batch["depth_range"]
+        loss, d_loss, color_loss = step.program(batch, draws=draws)
+    else:
+        loss, d_loss, color_loss = step(batch, draws=draws)
     assert models.unet_evals - evals0 == n_scenes
 
     worst = {"loss": abs(float(loss) / float(aux["loss"]) - 1)}
