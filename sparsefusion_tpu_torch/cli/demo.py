@@ -26,11 +26,11 @@ the scenes by (frame count, image size, context size), chunks each
 bucket to N, and distills each chunk of two or more in lockstep
 (``distill/batched.py``), a chunk of one sequentially; the JAX demo's
 rule that sets ``scene_batch`` to the local chip count does not apply
-(one card a process).  On a CUDA device each scene's iterations run as
-CUDA graphs of the JAX loop's fused programs (``distill/fused.py``);
-``--no_fused`` runs them eagerly (``DistillConfig.fused_steps=False``),
-as the JAX demo's flag does; scene batches have no fused path.  ``-g`` /
-``-p`` are accepted and change nothing.  With ``--device cuda``
+(one card a process).  On a CUDA device each iteration runs as CUDA
+graphs of the JAX loops' programs (``distill/fused.py``), one scene's or
+a scene batch's; ``--no_fused`` runs them eagerly
+(``DistillConfig.fused_steps=False``), as the JAX demo's flag does.
+``-g`` / ``-p`` are accepted and change nothing.  With ``--device cuda``
 and no CUDA device the demo raises; it never continues on the CPU.
 
 Several processes (``SF_COORDINATOR`` / ``SF_NUM_PROCESSES`` /
@@ -85,9 +85,8 @@ def parse_args(argv=None):
     p.add_argument("--no_fused", action="store_true",
                    help="disable the fused per-iteration programs, CUDA "
                         "graphs on the card (DistillConfig.fused_steps; "
-                        "default auto: on for CUDA, off on the CPU); only "
-                        "affects the sequential loop: scene batches >1 "
-                        "use distill/batched.py, which has no fused path")
+                        "default auto: on for CUDA, off on the CPU), in "
+                        "the sequential loop and in scene batches")
     p.add_argument("--scene_batch", type=int, default=1,
                    help="scenes distilled in lockstep on one device")
     p.add_argument("--device", type=str, default="cuda",

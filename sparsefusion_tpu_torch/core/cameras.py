@@ -140,6 +140,27 @@ def concat_cameras(camera_list: Sequence[Cameras]) -> Cameras:
                      for f in dataclasses.fields(Cameras)))
 
 
+def stack_cameras(camera_list: Sequence[Cameras]) -> Cameras:
+    """S camera batches of one length M as one batch with a (S, M) lead."""
+    return Cameras(*(torch.stack([getattr(c, f.name) for c in camera_list])
+                     for f in dataclasses.fields(Cameras)))
+
+
+def pick_per_scene(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``a[s, idx[s]]`` for every scene s: (S, M, ...) and (S,) int64
+    indices on ``a``'s device -> (S, ...), one gather on the device."""
+    scenes = torch.arange(idx.shape[0], device=idx.device)
+    return a[scenes, idx]
+
+
+def pick_cameras(cameras: Cameras, idx: torch.Tensor) -> Cameras:
+    """Camera ``idx[s]`` of scene s, for cameras with a (S, M) lead
+    (:func:`stack_cameras`): a batch of S cameras, gathered on the device
+    (the JAX batched loop's ``_pick_cam``)."""
+    return Cameras(*(pick_per_scene(getattr(cameras, f.name), idx)
+                     for f in dataclasses.fields(Cameras)))
+
+
 def _w2v_matrix(R: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     """4x4 world-to-view matrices, row-vector convention: [[R, 0], [T, 1]]."""
     n = R.shape[0]

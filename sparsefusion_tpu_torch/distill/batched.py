@@ -1,18 +1,29 @@
 """Scene-batched diffusion distillation: S scenes on one device, in lockstep.
 
 Counterpart of ``sparsefusion_tpu/distill/batched.py``.  The JAX package
-vmaps its per-scene step functions over a leading scene axis, so S NGPs
-are optimised in one program an iteration.  On the card the same move
-pays for the same reason: the loop is launch-bound, and a Python loop
-over scenes would multiply the launches by S.  Here the scene axis is
-written out: the S fields' parameters are one :class:`NGPFieldStack`, and
-every operation of an iteration is one launch for all S scenes — the
-grid encode forward and backward (one K1 launch each over S tables),
-each MLP layer (one batched matmul), the renderer over (S, R, 3) rays,
-the occupancy grids' update, and one VAE encode, one PLMS chain at UNet
-batch S and one VAE decode for the fusion targets.  The step bodies are
-the sequential loop's (``loop.SceneSteps``), written over the scene
-axis, so the two paths cannot drift.
+vmaps its per-scene step functions over a leading scene axis and runs
+each step of an iteration as one jitted program over all S scenes
+(``_build_input``, ``_build_bootstrap``, ``_build_render``,
+``_build_fusion_grad``; the fusion target one VAE encode, one PLMS chain
+at UNet batch S and one VAE decode).  Here the scene axis is written
+out: the S fields' parameters are one :class:`NGPFieldStack`, and every
+operation of an iteration is one launch for all S scenes — the grid
+encode forward and backward (one K1 launch each over S tables), each MLP
+layer (one batched matmul), the renderer over (S, R, 3) rays, the
+occupancy grids' update, and the sampler at UNet batch S.  The step
+bodies are the sequential loop's (``loop.SceneSteps``), written over the
+scene axis, so the two paths cannot drift.
+
+Dispatch follows ``DistillConfig.fused_steps`` as in the sequential
+loop: on a CUDA device (None) each iteration runs as the programs of
+``distill/fused.py`` over the scene axis, each captured once into a CUDA
+graph and replayed, with no host read between loss reads; with
+``fused_steps=False`` (``--no_fused``), and on the CPU by default, the
+same steps run op by op.  Both gather each iteration's cameras, targets
+and features on the device from (S,) index tensors
+(``core/cameras.py::pick_cameras``, the JAX loop's ``_pick_cam``).  The
+occupancy grids' update runs eagerly between iterations and is copied
+into the one bitfield buffer that the graphs read.
 
 Schedule semantics match the sequential loop (iteration count, fusion /
 bootstrap switch, occupancy cadence, marching and the polish tail);
@@ -23,12 +34,12 @@ iteration and shared by all S scenes, which keeps one PLMS step count for
 the batch (each scene's marginal stays Uniform[0, 1)).  The loss of a
 step is the sum of the scenes' own losses, so each scene's gradient is
 its own, as under ``vmap``, and one Adam over the stacked parameters is S
-independent ones (Adam is elementwise and its step count is shared).
+independent ones (Adam is elementwise and its step count is shared; on a
+CUDA device it is capturable and its staircase ticks on the device).
 
 The losses are read as the sequential loop reads them: kept on the
 device and fetched in one copy every ``loss_fetch_every`` iterations and
-at the end (``sync_times``).  The batched loop has no fused path, as in
-the JAX package.
+at the end (``sync_times``).
 
 All scenes must share the image size, the frame count and the context
 size; callers bucket ragged scene lists (``cli/demo.py``).  The JAX
@@ -38,17 +49,20 @@ the port's demo shards scenes over processes, one card each.
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from sparsefusion_tpu_torch.core.cameras import (
     concat_cameras,
-    get_camera_slice,
     get_relative_cameras,
+    pick_cameras,
+    pick_per_scene,
+    stack_cameras,
 )
 from sparsefusion_tpu_torch.data.contract import SceneData
+from sparsefusion_tpu_torch.distill.fused import FusedIterations
 from sparsefusion_tpu_torch.distill.loop import (
     OCC_GRID_SIZE,
     DistillConfig,
@@ -79,6 +93,30 @@ def _check_stackable(scenes: Sequence[SceneData], input_idx_list) -> None:
         raise ValueError("batched distillation needs equal context sizes")
 
 
+def _eager_iteration(steps, vc, cams_vox, rgb, mask, cache, bitfield,
+                     generator, bi: torch.Tensor, ci: Optional[torch.Tensor],
+                     mt: Optional[float], fusion: bool):
+    """One batched iteration, op by op: the input step on each scene's
+    view ``bi[s]`` and, with the cache, the bootstrap or fusion step on
+    its cached camera ``ci[s]``; the cameras and targets gathered on the
+    device as the graphs gather them.  Returns the (S,) losses (the
+    second None without the cache)."""
+    loss = steps.input_step(
+        vc, pick_cameras(cams_vox, bi), pick_per_scene(rgb, bi),
+        None if mask is None else pick_per_scene(mask, bi), generator,
+        bitfield=bitfield)
+    if ci is None:
+        return loss, None
+    cam_f = pick_cameras(cache["cameras_vox"], ci)
+    if fusion:
+        return loss, steps.fusion_step(
+            vc, cam_f, pick_per_scene(cache["features"], ci), mt,
+            generator, bitfield=bitfield)
+    return loss, steps.bootstrap_step(
+        vc, cam_f, pick_per_scene(cache["eft_images"], ci), generator,
+        bitfield=bitfield)
+
+
 def batched_distillation_loop(
     models,
     scenes: Sequence[SceneData],
@@ -89,6 +127,7 @@ def batched_distillation_loop(
     use_diffusion: bool = True,
     verbose: bool = True,
     lpips_fn=None,
+    iteration_hook: Optional[Callable[[int], None]] = None,
 ) -> List[Dict[str, Any]]:
     """Optimise S NGPs (one a scene) in lockstep on the device of
     ``generator``, which makes every device draw; returns per-scene result
@@ -109,6 +148,7 @@ def batched_distillation_loop(
     scene_vox = [get_relative_cameras(s.cameras(device), [0],
                                       center_at_origin=False)
                  for s in scenes]
+    cams_vox = stack_cameras(scene_vox)                    # (S, N)
     rgb = torch.stack([torch.as_tensor(s.images, device=device)
                        for s in scenes])                   # (S, N, H, W, 3)
     mask = None
@@ -122,18 +162,22 @@ def batched_distillation_loop(
     active_vcfg = render_schedule(cfg, vcfg)
 
     # ---- Phase A: every scene's EFT feature cache ----------------------
-    caches, cache_seconds, n_cache = None, 0.0, 0
+    cache, cache_seconds, n_cache = None, 0.0, 0
     if use_diffusion:
         t0 = time.time()
         caches = [build_feature_cache(models, s.cameras(device), rgb[i],
                                       input_idx_list[i], cfg, image_size)
                   for i, s in enumerate(scenes)]
-        features = torch.stack([c["features"] for c in caches])
-        eft_images = torch.stack([c["eft_images"] for c in caches])
+        cache = {
+            "cameras_vox": stack_cameras([concat_cameras(c["cameras_vox"])
+                                          for c in caches]),   # (S, M)
+            "features": torch.stack([c["features"] for c in caches]),
+            "eft_images": torch.stack([c["eft_images"] for c in caches])}
+        n_cache = len(caches[0]["cameras_vox"])
+        del caches
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         cache_seconds = time.time() - t0
-        n_cache = len(caches[0]["cameras_vox"])
         if verbose:
             print(f"cached {S}x{n_cache} features in {cache_seconds:.1f}s")
 
@@ -150,13 +194,22 @@ def batched_distillation_loop(
         occ_grid = OccupancyGrid(bound=cfg.bound, grid_size=OCC_GRID_SIZE,
                                  density_thresh=cfg.density_thresh,
                                  device=device, n_scenes=S)
+        # one buffer for the loop: each grid update is copied into it,
+        # so the graphs read the new bitfields
         bitfield = occ_grid.full_bitfield()
         occupancy = {"update_itrs": [], "update_seconds": [],
                      "occupied_share": [[] for _ in range(S)]}
 
+    fused = cfg.fused_steps
+    if fused is None:
+        fused = device.type == "cuda"
+    programs = None
+    if fused:
+        programs = FusedIterations(steps, generator, cams_vox, rgb, mask,
+                                   cache, bitfield)
+
     host_rngs = [np.random.RandomState(17 + 1013 * s) for s in range(S)]
     mt_rng = np.random.RandomState(29)
-    scene_idx = torch.arange(S, device=device)
     losses = [[] for _ in range(S)]
     fusion_losses = [[] for _ in range(S)]
     iter_times, sync_times = [], []
@@ -179,19 +232,16 @@ def batched_distillation_loop(
     render_modes = {"two_phase": 0, "march": 0}
     fusion_subset_steps = 0
 
-    def pick(cams, idx):
-        """One camera a scene: ``cams[s]``'s camera ``idx[s]``."""
-        return concat_cameras([get_camera_slice(c, [i])
-                               for c, i in zip(cams, idx)])
-
     t0 = time.time()
     for itr in range(cfg.max_itr):
         vc = active_vcfg(itr)
         render_modes["march" if vc.march_steps else "two_phase"] += 1
+        # occupancy maintenance of all S grids before the iteration's
+        # steps, eagerly, as in the sequential loop
         if occupancy_update_due(cfg, itr):
             t_occ = time.time()
             occ_grid.update(lambda pts: stack(pts)[0], generator)
-            bitfield = occ_grid.bitfield
+            bitfield.copy_(occ_grid.bitfield)
             occupancy["update_itrs"].append(itr)
             occupancy["update_seconds"].append(time.time() - t_occ)
             for s in range(S):
@@ -201,27 +251,23 @@ def batched_distillation_loop(
         # view, then every scene's cached camera; max_thres once, shared
         bi = [idx[r.randint(len(idx))]
               for idx, r in zip(input_idx_list, host_rngs)]
-        bi_t = torch.as_tensor(bi, device=device)
-        loss = steps.input_step(
-            vc, pick(scene_vox, bi), rgb[scene_idx, bi_t],
-            None if mask is None else mask[scene_idx, bi_t], generator,
-            bitfield=bitfield)
-        loss_log[0, itr].copy_(loss)
+        ci = mt = None
         if use_diffusion:
             ci = [int(r.randint(n_cache)) for r in host_rngs]
-            ci_t = torch.as_tensor(ci, device=device)
-            cam_f = concat_cameras([c["cameras_vox"][i]
-                                    for c, i in zip(caches, ci)])
-            if itr > cfg.start_fusion_step:
-                mt = min(float(mt_rng.uniform()), 0.99)
-                fusion_subset_steps += int(steps.subsample_fusion)
-                floss = steps.fusion_step(vc, cam_f,
-                                          features[scene_idx, ci_t], mt,
-                                          generator, bitfield=bitfield)
-            else:
-                floss = steps.bootstrap_step(
-                    vc, cam_f, eft_images[scene_idx, ci_t], generator,
-                    bitfield=bitfield)
+        fusion = use_diffusion and itr > cfg.start_fusion_step
+        if fusion:
+            mt = min(float(mt_rng.uniform()), 0.99)
+            fusion_subset_steps += int(steps.subsample_fusion)
+        if programs is not None:
+            loss, floss = programs.iteration(itr, vc, bi, ci, mt, fusion)
+        else:
+            loss, floss = _eager_iteration(
+                steps, vc, cams_vox, rgb, mask, cache, bitfield, generator,
+                torch.as_tensor(bi, device=device),
+                None if ci is None else torch.as_tensor(ci, device=device),
+                mt, fusion)
+        loss_log[0, itr].copy_(loss)
+        if floss is not None:
             loss_log[1, itr].copy_(floss)
         if (itr + 1) % fetch_every == 0 or itr == cfg.max_itr - 1:
             drain(itr)
@@ -230,6 +276,8 @@ def batched_distillation_loop(
             print(f"itr {itr:5d} loss "
                   f"{np.mean([l[-1] for l in losses]):.4f} "
                   f"({S * (itr + 1) / (time.time() - t0):.2f} scene-it/s)")
+        if iteration_hook is not None:
+            iteration_hook(itr)
 
     # ---- Phase C: every scene's eval, as the sequential loop's ----------
     vcfg_eval = active_vcfg(cfg.max_itr)
@@ -254,13 +302,14 @@ def batched_distillation_loop(
             "iter_times": iter_times,
             "sync_times": sync_times,
             "loop_start": t0,
+            # the graphs' warm-ups, captures and replays (the batch's)
+            "fused": None if programs is None else programs.stats(),
             "occupancy": scene_occupancy,
             "render_modes": render_modes,
             "fusion_subset_steps": fusion_subset_steps,
         })
         if save_dir is not None:
-            cache = None if caches is None else {
-                "eft_images": eft_images[s]}
-            _save_outputs(result, scene, cache, save_dir, verbose)
+            _save_outputs(result, scene, None if cache is None else {
+                "eft_images": cache["eft_images"][s]}, save_dir, verbose)
         results.append(result)
     return results

@@ -1,10 +1,13 @@
-"""The distillation loop's iteration programs, captured as CUDA graphs.
+"""The distillation loops' iteration programs, captured as CUDA graphs.
 
 Counterpart of the fused dispatch of ``sparsefusion_tpu/distill/loop.py``
 (``DistillConfig.fused_steps``), which turns an iteration into a few
-jitted programs.  Here each program is a Python function over static
-buffers, captured once per static key into a ``torch.cuda.CUDAGraph``
-and replayed; the programs, as the JAX package's:
+jitted programs, and of the scene-batched loop's per-step programs
+(``sparsefusion_tpu/distill/batched.py:297-392``: each step one jitted
+program over a leading scene axis).  Here each program is a Python
+function over static buffers, captured once per static key into a
+``torch.cuda.CUDAGraph`` and replayed; the programs, as the JAX
+package's:
 
 * ``input_iter``: the input step (the NGP-only loop's iteration);
 * ``boot_iter``: the input step, then the bootstrap step;
@@ -21,15 +24,26 @@ and replayed; the programs, as the JAX package's:
   With ``fusion_rays`` the gradient step renders its ray subset in the
   back program, as in the eager step.
 
+The same programs run one scene (``distill/loop.py``) or S scenes in
+lockstep on an ``NGPFieldStack`` (``distill/batched.py``): then the
+cameras carry a (S, N) lead, the images, masks and the cache a leading
+S, the index buffers and the losses one entry a scene, the sampler's
+buffers a leading S at UNet batch S (one K1 launch for all S tables,
+K2 at batch S), and ``max_thres`` one value for the batch, which keeps
+one PLMS step count, as in the JAX batched loop.
+
 The static key is the program, the render config (two-phase or
 marching) and the tail's order; the arm, ``subsample_fusion`` and the
 sampler's dtype are fixed for a loop.  Each iteration's inputs reach the
 graphs through the loop's index buffers (the input view, the cached
-camera), ``max_thres`` and the bitfield; the programs gather the
-cameras, targets and features from the scene's and the cache's tensors
-on the device.  The sampler's state (latents, the ring of the three last
-epsilons, the times from ``max_thres``, the step index, the fusion
-weight) lives in buffers made at a program's first run, which is eager.
+camera: the host draws copied in one transfer from pinned memory),
+``max_thres`` and the bitfield; the programs gather the cameras, targets
+and features from the scene's and the cache's tensors on the device
+(with a scene axis, scene s's row ``bi[s]`` / ``ci[s]``: the JAX batched
+loop's ``_pick_cam``).  The sampler's state (latents, the ring of the
+three last epsilons, the times from ``max_thres``, the step index, the
+fusion weight) lives in buffers made at a program's first run, which is
+eager.
 
 The graphs run through ``utils/graphs.py::GraphRunner``, which the
 train step's graphs share.  On a CUDA device a key's first run is
@@ -47,7 +61,7 @@ replay that fails raises: there is no eager fallback.  The
 kernels' launch counters and the UNet evaluations count in Python, so
 each graph records what its capture counted and adds it at each
 replay.  Elsewhere (the CPU) every run is eager, which is how the
-tests hold the fused structure against the unfused loop.
+tests hold the fused structure against the unfused loops.
 """
 from __future__ import annotations
 
@@ -55,9 +69,10 @@ import dataclasses
 import functools
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
-from sparsefusion_tpu_torch.core.cameras import Cameras, concat_cameras
+from sparsefusion_tpu_torch.core.cameras import Cameras, pick_per_scene
 from sparsefusion_tpu_torch.diffusion.plms import (
     eps_fn,
     host_schedule,
@@ -78,25 +93,24 @@ def _key_name(key: tuple) -> str:
                     if hasattr(k, "march_steps") else str(k) for k in key)
 
 
-def _gather(cams: Cameras, idx: torch.Tensor) -> Cameras:
-    return Cameras(*(getattr(cams, f.name).index_select(0, idx)
-                     for f in dataclasses.fields(Cameras)))
-
-
 class FusedIterations:
-    """The fused programs of one scene's loop (``SceneSteps`` of one
-    scene, its generator, the scene's relative cameras, images and masks,
-    the Phase A cache or None, the loop's bitfield buffer or None)."""
+    """The fused programs of one scene's loop, or of S scenes' in lockstep
+    (``SceneSteps`` of one scene or of an ``NGPFieldStack``, its
+    generator, the scene's relative cameras, images and masks, the Phase A
+    cache or None, the loop's bitfield buffer or None).  The cache's
+    ``cameras_vox`` is one ``Cameras`` with an (M,) lead.  With a scene
+    axis the cameras have a (S, N) lead and the cache's a (S, M) lead
+    (``core/cameras.py::stack_cameras``), the images, masks and the
+    cache's tensors a leading S, and each program gathers scene s's row
+    ``bi[s]`` / ``ci[s]``."""
 
     def __init__(self, steps, generator: torch.Generator, scene_vox: Cameras,
                  scene_rgb: torch.Tensor, scene_mask: Optional[torch.Tensor],
                  feature_cache=None, bitfield: Optional[torch.Tensor] = None):
-        if steps.scene_axis:
-            raise ValueError("the fused programs run one scene; scene "
-                             "batches have no fused path")
         self.steps = steps
         self.cfg = steps.cfg
         self.models = steps.models
+        self.scene_axis = steps.scene_axis
         self.generator = generator
         self.scene_vox, self.scene_rgb = scene_vox, scene_rgb
         self.scene_mask = scene_mask
@@ -104,23 +118,39 @@ class FusedIterations:
         dev = scene_rgb.device
         self.runner = GraphRunner(dev, generator,
                                   launch_counters(self.models))
-        # the iteration's host draws, as device indices and a float64 level
-        self.bi = torch.zeros((1,), dtype=torch.int64, device=dev)
-        self.ci = torch.zeros((1,), dtype=torch.int64, device=dev)
+        # the iteration's host draws as device indices, one a scene (the
+        # input view, the cached camera), and one float64 noise level
+        n = self.scene_axis[0] if self.scene_axis else 1
+        self.draws = torch.zeros((2, n), dtype=torch.int64, device=dev)
+        self.bi, self.ci = self.draws
         self.mt = torch.zeros((), dtype=torch.float64, device=dev)
-        self.loss = torch.zeros((), device=dev)
-        self.floss = torch.zeros((), device=dev)
+        self.loss = torch.zeros(self.scene_axis, device=dev)
+        self.floss = torch.zeros(self.scene_axis, device=dev)
         self.buffers: Dict[object, torch.Tensor] = {}
         # the front program's render (image, silhouette) with its autograd
         # graph, by render config, for the back program
         self.rendered: Dict[object, tuple] = {}
         if feature_cache is not None:
-            self.cams_f = concat_cameras(feature_cache["cameras_vox"])
+            self.cams_f = feature_cache["cameras_vox"]
             self.features = feature_cache["features"]
             self.eft_images = feature_cache["eft_images"]
             if self.cfg.sampler_bf16:
                 # the sampler's bf16 UNet is made before any capture
                 self.models.unet_half()
+
+    def _pick(self, a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """Row ``idx`` of ``a`` as a batch of one; with a scene axis, row
+        ``idx[s]`` of ``a[s]`` for each scene: (S, ...)."""
+        if self.scene_axis:
+            return pick_per_scene(a, idx)
+        return a.index_select(0, idx)
+
+    def _cams(self, cams: Cameras, idx: torch.Tensor) -> Cameras:
+        return Cameras(*(self._pick(getattr(cams, f.name), idx)
+                         for f in dataclasses.fields(Cameras)))
+
+    def _image(self, a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        return self.steps._unbatch(self._pick(a, idx))
 
     def _buffer(self, name, like: torch.Tensor) -> torch.Tensor:
         """The static buffer ``name``, made like ``like`` at the first
@@ -141,11 +171,11 @@ class FusedIterations:
 
     def _input(self, vc, draws=None) -> None:
         gt_mask = None if self.scene_mask is None else \
-            self.scene_mask.index_select(0, self.bi)[0]
+            self._image(self.scene_mask, self.bi)
         self.loss.copy_(self.steps.input_step(
-            vc, _gather(self.scene_vox, self.bi),
-            self.scene_rgb.index_select(0, self.bi)[0], gt_mask,
-            self.generator, draws, self.bitfield))
+            vc, self._cams(self.scene_vox, self.bi),
+            self._image(self.scene_rgb, self.bi), gt_mask, self.generator,
+            draws, self.bitfield))
 
     def input_iter(self, vc, draws=None) -> None:
         self._input(vc, draws)
@@ -153,8 +183,8 @@ class FusedIterations:
     def boot_iter(self, vc, draws=None, boot_draws=None) -> None:
         self._input(vc, draws)
         self.floss.copy_(self.steps.bootstrap_step(
-            vc, _gather(self.cams_f, self.ci),
-            self.eft_images.index_select(0, self.ci)[0], self.generator,
+            vc, self._cams(self.cams_f, self.ci),
+            self._image(self.eft_images, self.ci), self.generator,
             boot_draws, self.bitfield))
 
     def _eps(self):
@@ -173,7 +203,7 @@ class FusedIterations:
         sampler's ``init_noise``, from the generator where absent."""
         self._input(vc, draws)
         steps, models, fd = self.steps, self.models, fusion_draws or {}
-        cam_f = _gather(self.cams_f, self.ci)
+        cam_f = self._cams(self.cams_f, self.ci)
         if steps.subsample_fusion:
             with torch.no_grad():
                 img, _ = steps.render_up(vc, cam_f, self.generator, fd,
@@ -187,18 +217,18 @@ class FusedIterations:
             # pool for the back graph's backward)
             self.rendered[vc] = (img, sil)
         with torch.no_grad():
-            latents = models.vae_encode(img.detach()[None])
+            latents = models.vae_encode(steps._batch(img.detach()))
             full_start, times = plms_schedule(self.mt, self.cfg.plms_steps)
             noise = fd["init_noise"] if "init_noise" in fd else \
                 self._randn(latents)
             x0, _, log_snr = plms_prologue(models.ddpm, latents, self.mt,
                                            full_start, noise)
-            cond = self.features.index_select(0, self.ci)
-            weight = (1.0 - torch.sigmoid(log_snr))[0]
+            cond = self._pick(self.features, self.ci)
+            weight = steps._unbatch(1.0 - torch.sigmoid(log_snr))
             for name, value in (("x", x0), ("times", times), ("cond", cond),
                                 ("weight", weight)):
                 self._buffer(name, value).copy_(value)
-            self._buffer("idx", self.bi).fill_(1)
+            self._buffer("idx", self.bi[:1]).fill_(1)
 
     @torch.no_grad()
     def step0(self, noises=None) -> None:
@@ -241,11 +271,11 @@ class FusedIterations:
             if ddpm.config.clip_output:
                 x = torch.clamp(x, -ddpm.config.clip_value,
                                 ddpm.config.clip_value)
-            pred_img = self.models.vae_decode(x)[0]
+            pred_img = steps._unbatch(self.models.vae_decode(x))
         weight = self.buffers["weight"]
         if steps.subsample_fusion:
             loss = steps.update(steps.fusion_subset_losses, vc,
-                                _gather(self.cams_f, self.ci), pred_img,
+                                self._cams(self.cams_f, self.ci), pred_img,
                                 weight, self.generator, draws, self.bitfield)
         else:
             img, sil = self.rendered[vc]
@@ -258,18 +288,19 @@ class FusedIterations:
 
     # ---- one iteration --------------------------------------------------
 
-    def iteration(self, itr: int, vc, bi: int, ci: Optional[int] = None,
+    def iteration(self, itr: int, vc, bi, ci=None,
                   mt: Optional[float] = None, fusion: bool = False):
         """Run iteration ``itr`` on the input view ``bi`` and, with the
         diffusion arm, the cached camera ``ci`` and noise level ``mt``;
-        returns the loss buffers (the second None without the arm).  The
-        buffers hold the values until the next iteration."""
+        returns the loss buffers (the second None without the arm).  With
+        a scene axis ``bi`` and ``ci`` hold one index a scene and the
+        losses one value a scene; ``mt`` is the batch's.  The buffers hold
+        the values until the next iteration."""
+        self._load_draws(bi, ci)
         run = self.runner.run
-        self.bi.fill_(int(bi))
         if ci is None:
             run(("input", vc), functools.partial(self.input_iter, vc), itr)
             return self.loss, None
-        self.ci.fill_(int(ci))
         if not fusion:
             run(("boot", vc), functools.partial(self.boot_iter, vc), itr)
             return self.loss, self.floss
@@ -283,6 +314,18 @@ class FusedIterations:
             run(("tail", order), functools.partial(self.tail, order), itr)
         run(("back", vc), functools.partial(self.fusion_back, vc), itr)
         return self.loss, self.floss
+
+    def _load_draws(self, bi, ci) -> None:
+        """The host draws into the index buffers, in one copy (from pinned
+        memory on a CUDA device: no synchronisation)."""
+        rows = np.zeros(tuple(self.draws.shape), np.int64)
+        rows[0] = bi
+        if ci is not None:
+            rows[1] = ci
+        host = torch.from_numpy(rows)
+        if self.runner.graphs:
+            host = host.pin_memory()
+        self.draws.copy_(host, non_blocking=True)
 
     def stats(self) -> dict:
         """Warm-ups, captures (key, iteration, seconds) and replays."""

@@ -697,8 +697,12 @@ def distillation_loop(
     if fused:
         from sparsefusion_tpu_torch.distill.fused import FusedIterations
 
+        # the programs gather the cached cameras from one (M,) Cameras
+        cache = None if feature_cache is None else dict(
+            feature_cache,
+            cameras_vox=concat_cameras(feature_cache["cameras_vox"]))
         programs = FusedIterations(steps, generator, scene_vox, scene_rgb,
-                                   scene_mask, feature_cache, bitfield)
+                                   scene_mask, cache, bitfield)
 
     host_rng = np.random.RandomState(17)
     # the losses stay on the device and are read in one copy every

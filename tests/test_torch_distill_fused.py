@@ -209,7 +209,7 @@ def _programs(tmodels, params=None):
         tcam.Cameras.create(scene.R, scene.T, scene.f, scene.c,
                             scene.image_size), [0], center_at_origin=False)
     rng = np.random.RandomState(3)
-    cache = {"cameras_vox": [tcam.get_camera_slice(vox, [1])],
+    cache = {"cameras_vox": tcam.get_camera_slice(vox, [1]),
              "features": torch.tensor(rng.randn(1, 256, 4, 4)
                                       .astype(np.float32)),
              "eft_images": torch.tensor(rng.rand(1, IMAGE_SIZE, IMAGE_SIZE, 3)
@@ -357,8 +357,13 @@ def _as_port_names(params):
 
 
 def _as_jax_params(params, field):
-    """The JAX parameter tree ``params`` holding the port field's values."""
-    got = {n: p.detach().numpy() for n, p in field.named_parameters()}
+    """The JAX parameter tree ``params`` holding the port field's values,
+    copied: ``jnp.asarray`` of a tensor's numpy view shares the tensor's
+    memory on the CPU, and JAX dispatches asynchronously, so the port's
+    next in-place update could reach a JAX computation launched before
+    it (its gradients then moved by up to 0.29, under load)."""
+    got = {n: np.array(p.detach().numpy())
+           for n, p in field.named_parameters()}
 
     def leaf(path, _):
         keys = [p.key for p in path]

@@ -790,20 +790,26 @@ def test_cuda_scene_batched_field_step():
 
 # ---- the fused loop's CUDA graphs (distill/fused.py) ----------------------
 
-def _tiny_loop(fused, max_itr=6):
+def _tiny_loop(fused, max_itr=6, n_scenes=1):
+    """The NGP-only loop at a tiny size; with ``n_scenes`` above 1, that
+    many scenes in lockstep (``distill/batched.py``), a result each."""
     from sparsefusion_tpu_torch.data.synthetic import make_synthetic_scene
-    from sparsefusion_tpu_torch.distill import loop
+    from sparsefusion_tpu_torch.distill import batched, loop
     from sparsefusion_tpu_torch.nn.ngp import NGPConfig
 
     cfg = loop.DistillConfig(
         max_itr=max_itr, n_aug_cameras=2, num_steps=8, upsample_steps=8,
         max_ray_batch=256, ngp=NGPConfig(num_levels=4, log2_hashmap_size=10),
         fused_steps=fused)
-    scene = make_synthetic_scene(n_views=3, image_size=32, seed=0)
-    return loop.distillation_loop(
-        None, scene, [0, 1], cfg,
-        torch.Generator(device="cuda").manual_seed(1), use_diffusion=False,
-        verbose=False)
+    scenes = [make_synthetic_scene(n_views=3, image_size=32, seed=s)
+              for s in range(n_scenes)]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    if n_scenes > 1:
+        return batched.batched_distillation_loop(
+            None, scenes, [[0, 1]] * n_scenes, cfg, gen,
+            use_diffusion=False, verbose=False)
+    return loop.distillation_loop(None, scenes[0], [0, 1], cfg, gen,
+                                  use_diffusion=False, verbose=False)
 
 
 @pytest.mark.cuda
@@ -823,6 +829,26 @@ def test_cuda_fused_input_steps_match_the_eager_loop():
     assert fused["fused"]["replays"] == 5
     assert fused["losses"][0] == eager["losses"][0]
     np.testing.assert_allclose(fused["losses"], eager["losses"], rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_batched_fused_input_steps_match_the_eager_batched_loop():
+    """Two scenes in lockstep as CUDA graphs over the scene axis (the
+    card's default) against the eager batched loop from one seed, as
+    the single-scene test holds the loop: one warm-up, a capture and five
+    replays; every scene's first loss bit-equal, the rest within 1e-3
+    relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode")
+    fused, eager = _tiny_loop(None, n_scenes=2), _tiny_loop(False, n_scenes=2)
+    for f, e in zip(fused, eager):
+        assert e["fused"] is None
+        assert f["fused"]["graphs"] and f["fused"]["warmups"] == 1
+        assert len(f["fused"]["captures"]) == 1
+        assert f["fused"]["replays"] == 5
+        assert f["losses"][0] == e["losses"][0]
+        np.testing.assert_allclose(f["losses"], e["losses"], rtol=1e-3)
+    assert fused[0]["losses"] != fused[1]["losses"]
 
 
 @pytest.mark.cuda
