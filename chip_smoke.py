@@ -1308,10 +1308,12 @@ class _DrawsLoadedOnce:
         self._cls, self._load = FusedIterations, FusedIterations._load_draws
         load = self._load
 
-        def once(programs, bi, ci):
+        def once(programs, bi, ci, mt=None):
             if not getattr(programs, "_draws_loaded", False):
                 programs._draws_loaded = True
-                load(programs, bi, ci)
+                load(programs, bi, ci, mt)
+            elif mt is not None:        # the noise level still each time
+                programs.mt.fill_(float(mt))
 
         FusedIterations._load_draws = once
         return self
@@ -1598,25 +1600,62 @@ def unet_eval_profile(n_evals=PROFILE_ITERS):
 FETCH = 20
 
 
+def _loss_reads(r):
+    """{iteration: host seconds at the end of its loss read} of a loop's
+    result, from its spans (``main`` records every unit), with -1 the
+    start of its first iteration."""
+    sp = r["spans"]
+    at = {s["unit"]: s["t1"] * 1e-9 for s in sp if s["name"] == "loss_read"}
+    at[-1] = min(s["t0"] for s in sp if s["kind"] == "unit") * 1e-9
+    return at
+
+
+def _span_s(r, match, units=lambda i: True):
+    """Host seconds of the result's spans whose name ``match`` accepts,
+    in the units ``units`` accepts, summed."""
+    return sum((s["t1"] - s["t0"]) * 1e-9 for s in r["spans"]
+               if match(s["name"]) and units(s["unit"]))
+
+
+def _is_capture(name):
+    return name.startswith("capture/")
+
+
 def _rates(r, bounds, overhead=None):
     """it/s of a loop's result between its loss reads: for each name,
     iterations a + 1 .. b of ``bounds``' (a, b), the host seconds from the
     read at a (a = -1: the loop's start) to the read at b, less the
     measurement's own seconds in them (``overhead``: {iteration:
     seconds}), and the same without the CUDA-graph captures made in that
-    span."""
-    at = dict(r["sync_times"])
-    at[-1] = r["loop_start"]
-    captures = (r.get("fused") or {}).get("captures", [])
+    span (``capture/<key>`` spans)."""
+    at = _loss_reads(r)
     out = {}
     for name, (a, b) in bounds.items():
         sec = at[b] - at[a] - sum(s for i, s in (overhead or {}).items()
                                   if a < i <= b)
-        cap = sum(c["seconds"] for c in captures if a < c["itr"] <= b)
+        cap = _span_s(r, _is_capture, lambda i: i is not None and a < i <= b)
         out[name] = {"iterations": b - a, "s": sec, "it_per_s": (b - a) / sec,
                      "capture_s": cap,
                      "it_per_s_without_captures": (b - a) / (sec - cap)}
     return out
+
+
+def _grid_update_s(r):
+    """Host seconds of each occupancy grid update (its span)."""
+    return [(s["t1"] - s["t0"]) * 1e-9 for s in r["spans"]
+            if s["name"] == "occupancy_update"]
+
+
+def _train_reads(r):
+    """(steps done, host seconds) at the end of each of the train CLI's
+    loss reads, from its spans: the ``train/step`` units finished
+    before the read."""
+    sp = r["spans"]
+    ends = sorted(s["t1"] for s in sp if s["kind"] == "unit")
+    reads = sorted((s for s in sp if s["name"] == "loss_read"),
+                   key=lambda s: s["t0"])
+    return [(sum(e <= s["t0"] for e in ends), s["t1"] * 1e-9)
+            for s in reads]
 
 
 def _graph_stats(r):
@@ -1627,7 +1666,7 @@ def _graph_stats(r):
         return None
     assert f["graphs"], f
     return {"captures": len(f["captures"]),
-            "capture_s": sum(c["seconds"] for c in f["captures"]),
+            "capture_s": _span_s(r, _is_capture),
             "replays": f["replays"], "warmups": f["warmups"],
             "keys": sorted({c["key"] for c in f["captures"]})}
 
@@ -1894,7 +1933,7 @@ def diffusion_main_path(variant="f32", max_itr=40, lpips_spec=None,
                                          "fusion": (FETCH - 1, last)}, peak)
     rates = loop_stats["rates"]
     fusion_s = rates["fusion"]["s"]
-    stats = {"phase_a_s": r["cache_seconds"],
+    stats = {"phase_a_s": _span_s(r, lambda n: n == "phase_a"),
              "it_per_s": max_itr / (rates["bootstrap"]["s"] + fusion_s),
              "bootstrap_it_per_s": rates["bootstrap"]["it_per_s"],
              "fusion_it_per_s": rates["fusion"]["it_per_s"],
@@ -1910,7 +1949,7 @@ def diffusion_main_path(variant="f32", max_itr=40, lpips_spec=None,
         stats.update({"render_modes": modes,
                       "fusion_subset_steps": r["fusion_subset_steps"],
                       "grid_update_itrs": occ["update_itrs"],
-                      "grid_update_s": occ["update_seconds"],
+                      "grid_update_s": _grid_update_s(r),
                       "occupied_share": occ["occupied_share"]})
     label = "diffusion main path" + {"f32": "", "bf16_sampler":
                                      " (bf16 sampler)",
@@ -1996,8 +2035,8 @@ def tpu_ngp_main_path(fused=True, max_itr=600):
                                          "march": (start - 1, last)}, peak)
     rates = loop_stats["rates"]
     # grid updates inside the marching span (iterations start+1 ..)
-    upd_after = sum(s for i, s in zip(occ["update_itrs"],
-                                      occ["update_seconds"]) if i > start)
+    upd_after = _span_s(r, lambda n: n == "occupancy_update",
+                        lambda i: i > start)
     stats = {
         "it_per_s": (last - FETCH + 1) / (rates["two_phase"]["s"]
                                           + rates["march"]["s"]),
@@ -2006,7 +2045,7 @@ def tpu_ngp_main_path(fused=True, max_itr=600):
         "it_per_s_march_without_grid_updates":
             rates["march"]["iterations"] / (rates["march"]["s"] - upd_after),
         "grid_update_itrs": occ["update_itrs"],
-        "grid_update_s": occ["update_seconds"],
+        "grid_update_s": _grid_update_s(r),
         "occupied_share": occ["occupied_share"],
         "render_modes": r["render_modes"], "peak_gib": peak[0],
         "wall_s": wall, "psnr": r["metrics"]["psnr"],
@@ -2396,7 +2435,7 @@ def batched_main_path(kind, single, fused=True):
 
     assert len(results) == SCENES
     r = results[0]
-    assert len(r["iter_times"]) == max_itr
+    assert sum(s["kind"] == "unit" for s in r["spans"]) == max_itr
     k1 = phase_b.k1()
     loop_stats = _probe_stats(r, probe, bounds, peak)
     rates = loop_stats["rates"]
@@ -2417,7 +2456,7 @@ def batched_main_path(kind, single, fused=True):
              # the windows' synchronising calls less their loss reads
              "syncs_besides_reads": {
                  name: probe.syncs_at[b] - probe.syncs_at[a]
-                 - sum(a < i <= b for i, _ in r["sync_times"])
+                 - sum(a < i <= b for i in _loss_reads(r) if i >= 0)
                  for name, (a, b) in windows.items()}}
     if kind == "diffusion":
         stats.update({
@@ -2428,7 +2467,8 @@ def batched_main_path(kind, single, fused=True):
             "scene_bootstrap_it_per_s":
                 SCENES * rates["bootstrap"]["it_per_s"],
             "single_scene_bootstrap_it_per_s": single["bootstrap_it_per_s"],
-            "unet_evals": r["unet_evals"], "phase_a_s": r["cache_seconds"],
+            "unet_evals": r["unet_evals"],
+            "phase_a_s": _span_s(r, lambda n: n == "phase_a"),
             "unet_batches": sorted(set(phase_b.unet_batches))})
     if kind == "tpu":
         stats["render_modes"] = r["render_modes"]
@@ -2930,12 +2970,12 @@ def train_main_path(counts, bf16=False, graphs=True):
     # the graph run's at steps 50 and 100, the eager run's at step 0 and
     # at its end
     r, _, peak = runs[-1]
-    (n_a, t_a), (n_b, t_b) = r["sync_times"][:2]
+    (n_a, t_a), (n_b, t_b) = _train_reads(r)[:2]
     start = r["start_step"]
     probe_s = sum(sec for i, sec in probe.hook_s.items()
                   if start + n_a <= i < start + n_b)
-    captures = (r["fused"] or {}).get("captures", [])
-    cap_s = sum(c["seconds"] for c in captures if n_a <= c["itr"] < n_b)
+    cap_s = _span_s(r, _is_capture,
+                    lambda i: i is not None and n_a <= i < n_b)
     sizes = r["context_sizes"][n_a:n_b]
     bound_s = sum(step_bound_s(counts, nc, precision) for nc in sizes)
     sa, sb = TRAIN_SYNC_SPANS[kind]
@@ -3752,11 +3792,15 @@ def main(argv=None) -> int:
         return 1
     from sparsefusion_tpu_torch.cli import demo
     from sparsefusion_tpu_torch.kernels import _build
+    from sparsefusion_tpu_torch.utils import spans
     from sparsefusion_tpu_torch.utils.precision import set_tf32
 
     global _BUILD_TRIO
     _BUILD_TRIO, demo.build_trio = demo.build_trio, _shared_trio
     set_tf32(False)
+    # every iteration and step is a recorded unit: the rates below are
+    # read from the loops' loss-read spans
+    spans.enable()
     if args.csrc is not None:
         _build.CSRC = pathlib.Path(args.csrc).resolve()
     _device_lines()

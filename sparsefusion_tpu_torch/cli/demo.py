@@ -32,6 +32,10 @@ a scene batch's; ``--no_fused`` runs them eagerly
 (``DistillConfig.fused_steps=False``), as the JAX demo's flag does.
 ``-g`` / ``-p`` are accepted and change nothing.  With ``--device cuda``
 and no CUDA device the demo raises; it never continues on the CPU.
+``--spans`` records every iteration in the span recorder
+(``utils/spans.py``), prints, at each loss read, a line of the set-up
+spans and one of the iterations' host ms and each layer's device ms an
+iteration, and writes every span to ``<exp_dir>/spans_<process>.json``.
 
 Several processes (``SF_COORDINATOR`` / ``SF_NUM_PROCESSES`` /
 ``SF_PROCESS_ID``, or ``SF_DISTRIBUTED=1``: ``parallel/mesh.py``) split
@@ -91,6 +95,11 @@ def parse_args(argv=None):
                    help="scenes distilled in lockstep on one device")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device the demo runs on (cuda or cpu)")
+    p.add_argument("--spans", action="store_true",
+                   help="record every iteration's spans, print each "
+                        "layer's device ms and the host ms an iteration at "
+                        "each loss read, and write the spans to "
+                        "<exp_dir>/spans_<process>.json")
     args = p.parse_args(argv)
 
     # reference default parameter block
@@ -200,6 +209,7 @@ def main(argv=None):
         rank_and_world,
         shard_scene_list,
     )
+    from sparsefusion_tpu_torch.utils import spans
     from sparsefusion_tpu_torch.utils.precision import set_tf32
 
     check_args(args)
@@ -238,6 +248,9 @@ def main(argv=None):
             f"{args.category}_{val_idx:03d}_c{len(input_idx)}"
         entries.append((val_idx, scene, input_idx))
 
+    first_span = spans.mark()
+    if args.spans:
+        spans.enable(report=print)
     results = []
     for group in scene_groups(entries, args.scene_batch):
         generator = torch.Generator(device=device)
@@ -253,6 +266,11 @@ def main(argv=None):
             results.extend(batched_distillation_loop(
                 models, [g[1] for g in group], [g[2] for g in group], cfg,
                 generator, **kw))
+    if args.spans:
+        spans.disable()
+        os.makedirs(args.exp_dir, exist_ok=True)
+        spans.dump(os.path.join(args.exp_dir, f"spans_{rank}.json"),
+                   first_span)
     return results
 
 

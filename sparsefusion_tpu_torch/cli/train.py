@@ -25,7 +25,11 @@ bf16 on f32 master parameters (``TrainConfig.compute_dtype``); the
 visualization samples with the f32 UNet, as the JAX CLI's.  f32 matmuls
 and convolutions run in full f32 (TF32 off, ``utils/precision.py``).
 With ``--device cuda`` and no CUDA device the CLI raises; it never
-continues on the CPU.
+continues on the CPU.  ``--spans`` records every step in the span
+recorder (``utils/spans.py``), prints (rank 0), at each loss read, a
+line of the set-up spans (checkpoints among them) and one of the steps'
+host ms and each layer's device ms a step, and writes every span to
+``<exp_dir>/spans_<rank>.json``.
 """
 from __future__ import annotations
 
@@ -71,6 +75,11 @@ def parse_args(argv=None):
                         "backward op that produced a NaN")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device the training runs on (cuda or cpu)")
+    p.add_argument("--spans", action="store_true",
+                   help="record every step's spans, print each layer's "
+                        "device ms and the host ms a step at each loss "
+                        "read, and write the spans to "
+                        "<exp_dir>/spans_<rank>.json")
     args = p.parse_args(argv)
     args.vae_ckpt = None if args.vae == "-DNE" else args.vae
     return args
@@ -135,10 +144,10 @@ def _visualize(models, scene, query: int, ctx, cfg, path: str, step: int,
 def main(argv=None, step_hook=None):
     """Train; returns a results dict: per-step losses (``losses``,
     ``d_losses``, ``color_losses``) and context sizes
-    (``context_sizes``), the host clock at the start of the loop
-    (``loop_start``) and at each loss read (``sync_times``: (steps done
-    in this run, seconds)), the seconds of each checkpoint written during
-    the run (``checkpoint_seconds``), ``start_step``, ``unet_evals``
+    (``context_sizes``), the span recorder's spans of the run
+    (``spans``: set-up, each ``checkpoint``, and with ``--spans`` or
+    under a profiler each step's ``train/step`` and loss read's
+    ``loss_read``), ``start_step``, ``unet_evals``
     (UNet forwards of this process), the guard's ``notfinite`` counts,
     ``params_without_grad`` (UNet and EFT parameters the last step gave
     no gradient) and ``fused`` (the graphs' warm-ups, captures and
@@ -165,6 +174,7 @@ def main(argv=None, step_hook=None):
         notfinite_count,
         prepare_scene_batch,
     )
+    from sparsefusion_tpu_torch.utils import spans
     from sparsefusion_tpu_torch.utils.precision import set_tf32
 
     set_tf32(False)
@@ -174,6 +184,10 @@ def main(argv=None, step_hook=None):
     device = process_device(device)
     if device.type == "cuda" and device.index is not None:
         torch.cuda.set_device(device)
+    first_span = spans.mark()
+    spans.use_device(device)
+    if args.spans:
+        spans.enable(report=print if rank == 0 else None)
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
 
@@ -232,22 +246,20 @@ def main(argv=None, step_hook=None):
                 "rng": rng})
 
     results = {"start_step": start_step, "losses": [], "d_losses": [],
-               "color_losses": [], "context_sizes": [], "sync_times": [],
-               "checkpoint_seconds": []}
+               "color_losses": [], "context_sizes": []}
     ring = LossRing(3, device)
 
-    def read_losses(n_done: int) -> list:
-        """The losses of the steps since the last read, in one transfer;
-        returns the last step's."""
+    def read_losses() -> list:
+        """The losses of the steps since the last read, in one transfer
+        (the span ``loss_read``); returns the last step's."""
         rows = ring.read()
-        results["sync_times"].append((n_done, time.perf_counter()))
         for key, column in zip(("losses", "d_losses", "color_losses"),
                                zip(*rows)):
             results[key].extend(column)
         return rows[-1]
 
     n_skipped = notfinite_count(unet_opt)
-    results["loop_start"] = time.perf_counter()
+    t_start = time.perf_counter()
     for step in range(start_step, args.steps):
         scene_ids = host.randint(len(dataset), size=1)
         scenes = [dataset[int(s)] for s in scene_ids]
@@ -261,17 +273,18 @@ def main(argv=None, step_hook=None):
         if fused is not None:
             ring.push(fused(prepare_scene_batch(scenes, query, ctx)))
         else:
-            batch = prepare_scene_batch(scenes, query, ctx, device)
-            ring.push(torch.stack(step_fn(batch, generator)))
+            with spans.unit("train/step", step - start_step):
+                batch = prepare_scene_batch(scenes, query, ctx, device)
+                ring.push(torch.stack(step_fn(batch, generator)))
         results["context_sizes"].append(cs)
         if step_hook is not None:
             step_hook(step)
 
         if step % 50 == 0:
-            losses = read_losses(step - start_step + 1)
+            losses = read_losses()
             if rank == 0:
                 sps = (step - start_step + 1) / (time.perf_counter()
-                                                 - results["loop_start"])
+                                                 - t_start)
                 print(f"step {step} loss {losses[0]:.4f} ({sps:.2f} "
                       "steps/s)")
                 skipped = notfinite_count(unet_opt)
@@ -292,18 +305,23 @@ def main(argv=None, step_hook=None):
                 print("vis failed:", repr(e))
         if step % args.save_itr == 0 and step > 0:
             if ring.n:
-                read_losses(step - start_step + 1)
-            t_save = time.perf_counter()
-            checkpoint(step + 1)
-            results["checkpoint_seconds"].append(
-                time.perf_counter() - t_save)
+                read_losses()
+            with spans.setup_span("checkpoint"):
+                checkpoint(step + 1)
             if rank == 0:
                 print("saving model at step", step)
 
     if ring.n:
-        read_losses(args.steps - start_step)
-    checkpoint(max(args.steps, start_step))
+        read_losses()
+    with spans.setup_span("checkpoint"):
+        checkpoint(max(args.steps, start_step))
+    if args.spans:
+        spans.disable()
+        os.makedirs(args.exp_dir, exist_ok=True)
+        spans.dump(os.path.join(args.exp_dir, f"spans_{rank}.json"),
+                   first_span)
     results.update(
+        spans=spans.snapshot(first_span),
         unet_evals=models.unet_evals,
         notfinite={"unet": notfinite_count(unet_opt),
                    "eft": notfinite_count(eft_opt)},

@@ -39,7 +39,10 @@ CUDA device it is capturable and its staircase ticks on the device).
 
 The losses are read as the sequential loop reads them: kept on the
 device and fetched in one copy every ``loss_fetch_every`` iterations and
-at the end (``sync_times``).
+at the end (each a ``loss_read`` span).  The span recorder times the
+batch as it times the sequential loop (``utils/spans.py``): Phase A of
+all S scenes is one ``phase_a`` span, each iteration one
+``distill/iteration`` unit.
 
 All scenes must share the image size, the frame count and the context
 size; callers bucket ragged scene lists (``cli/demo.py``).  The JAX
@@ -78,6 +81,7 @@ from sparsefusion_tpu_torch.distill.loop import (
 from sparsefusion_tpu_torch.nn.ngp import NGPField, NGPFieldStack
 from sparsefusion_tpu_torch.render.occupancy import OccupancyGrid
 from sparsefusion_tpu_torch.render.volume import VolumeRendererConfig
+from sparsefusion_tpu_torch.utils import spans
 
 
 def _check_stackable(scenes: Sequence[SceneData], input_idx_list) -> None:
@@ -131,9 +135,9 @@ def batched_distillation_loop(
 ) -> List[Dict[str, Any]]:
     """Optimise S NGPs (one a scene) in lockstep on the device of
     ``generator``, which makes every device draw; returns per-scene result
-    dicts with the keys of :func:`loop.distillation_loop` (the iteration
-    clock, render modes, fusion subset steps, UNet evaluations and
-    occupancy updates are the batch's, shared by its scenes)."""
+    dicts with the keys of :func:`loop.distillation_loop` (the spans,
+    render modes, fusion subset steps, UNet evaluations and occupancy
+    updates are the batch's, shared by its scenes)."""
     S = len(scenes)
     if S == 0:
         return []
@@ -141,6 +145,8 @@ def batched_distillation_loop(
     if use_diffusion and models is None:
         raise ValueError("the diffusion arm needs the EFT/VAE/UNet models")
     device = generator.device
+    first_span = spans.mark()
+    spans.use_device(device)
     image_size = scenes[0].images.shape[1]
     render_hw = image_size // cfg.hw_scale
     input_idx_list = [[int(i) for i in idx] for idx in input_idx_list]
@@ -162,24 +168,27 @@ def batched_distillation_loop(
     active_vcfg = render_schedule(cfg, vcfg)
 
     # ---- Phase A: every scene's EFT feature cache ----------------------
-    cache, cache_seconds, n_cache = None, 0.0, 0
+    cache, n_cache = None, 0
     if use_diffusion:
-        t0 = time.time()
-        caches = [build_feature_cache(models, s.cameras(device), rgb[i],
-                                      input_idx_list[i], cfg, image_size)
-                  for i, s in enumerate(scenes)]
-        cache = {
-            "cameras_vox": stack_cameras([concat_cameras(c["cameras_vox"])
-                                          for c in caches]),   # (S, M)
-            "features": torch.stack([c["features"] for c in caches]),
-            "eft_images": torch.stack([c["eft_images"] for c in caches])}
-        n_cache = len(caches[0]["cameras_vox"])
-        del caches
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        cache_seconds = time.time() - t0
+        with spans.setup_span("phase_a") as phase_a:
+            caches = [build_feature_cache(models, s.cameras(device), rgb[i],
+                                          input_idx_list[i], cfg,
+                                          image_size)
+                      for i, s in enumerate(scenes)]
+            cache = {
+                "cameras_vox": stack_cameras(
+                    [concat_cameras(c["cameras_vox"])
+                     for c in caches]),                        # (S, M)
+                "features": torch.stack([c["features"] for c in caches]),
+                "eft_images": torch.stack([c["eft_images"]
+                                           for c in caches])}
+            n_cache = len(caches[0]["cameras_vox"])
+            del caches
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
         if verbose:
-            print(f"cached {S}x{n_cache} features in {cache_seconds:.1f}s")
+            print(f"cached {S}x{n_cache} features in "
+                  f"{(phase_a.t1 - phase_a.t0) * 1e-9:.1f}s")
 
     # ---- Phase B: S NGPs in lockstep -----------------------------------
     stack = NGPFieldStack([NGPField(cfg.ngp, device=device,
@@ -197,7 +206,7 @@ def batched_distillation_loop(
         # one buffer for the loop: each grid update is copied into it,
         # so the graphs read the new bitfields
         bitfield = occ_grid.full_bitfield()
-        occupancy = {"update_itrs": [], "update_seconds": [],
+        occupancy = {"update_itrs": [],
                      "occupied_share": [[] for _ in range(S)]}
 
     fused = cfg.fused_steps
@@ -212,7 +221,6 @@ def batched_distillation_loop(
     mt_rng = np.random.RandomState(29)
     losses = [[] for _ in range(S)]
     fusion_losses = [[] for _ in range(S)]
-    iter_times, sync_times = [], []
     # the losses stay on the device and are read in one copy every
     # loss_fetch_every iterations and at the end, as in the JAX loop
     loss_log = torch.zeros((2 if use_diffusion else 1, cfg.max_itr, S),
@@ -222,64 +230,69 @@ def batched_distillation_loop(
 
     def drain(itr):
         nonlocal fetched
-        read = loss_log[:, fetched:itr + 1].tolist()
+        with spans.span("loss_read"):
+            read = loss_log[:, fetched:itr + 1].tolist()
+            spans.sync_point()
         for log, rows in zip((losses, fusion_losses), read):
             for row in rows:
                 for s, v in enumerate(row):
                     log[s].append(v)
         fetched = itr + 1
-        sync_times.append((itr, time.time()))
     render_modes = {"two_phase": 0, "march": 0}
     fusion_subset_steps = 0
 
-    t0 = time.time()
+    t_start = time.perf_counter()
     for itr in range(cfg.max_itr):
-        vc = active_vcfg(itr)
-        render_modes["march" if vc.march_steps else "two_phase"] += 1
-        # occupancy maintenance of all S grids before the iteration's
-        # steps, eagerly, as in the sequential loop
-        if occupancy_update_due(cfg, itr):
-            t_occ = time.time()
-            occ_grid.update(lambda pts: stack(pts)[0], generator)
-            bitfield.copy_(occ_grid.bitfield)
-            occupancy["update_itrs"].append(itr)
-            occupancy["update_seconds"].append(time.time() - t_occ)
-            for s in range(S):
-                occupancy["occupied_share"][s].append(
-                    _occupied_share(bitfield[s]))
-        # host draws in the JAX batched loop's order: every scene's input
-        # view, then every scene's cached camera; max_thres once, shared
-        bi = [idx[r.randint(len(idx))]
-              for idx, r in zip(input_idx_list, host_rngs)]
-        ci = mt = None
-        if use_diffusion:
-            ci = [int(r.randint(n_cache)) for r in host_rngs]
-        fusion = use_diffusion and itr > cfg.start_fusion_step
-        if fusion:
-            mt = min(float(mt_rng.uniform()), 0.99)
-            fusion_subset_steps += int(steps.subsample_fusion)
-        if programs is not None:
-            loss, floss = programs.iteration(itr, vc, bi, ci, mt, fusion)
-        else:
-            loss, floss = _eager_iteration(
-                steps, vc, cams_vox, rgb, mask, cache, bitfield, generator,
-                torch.as_tensor(bi, device=device),
-                None if ci is None else torch.as_tensor(ci, device=device),
-                mt, fusion)
-        loss_log[0, itr].copy_(loss)
-        if floss is not None:
-            loss_log[1, itr].copy_(floss)
-        if (itr + 1) % fetch_every == 0 or itr == cfg.max_itr - 1:
-            drain(itr)
-        iter_times.append(time.time())
-        if verbose and itr % 200 == 0 and losses[0]:
-            print(f"itr {itr:5d} loss "
-                  f"{np.mean([l[-1] for l in losses]):.4f} "
-                  f"({S * (itr + 1) / (time.time() - t0):.2f} scene-it/s)")
+        with spans.unit("distill/iteration", itr):
+            vc = active_vcfg(itr)
+            render_modes["march" if vc.march_steps else "two_phase"] += 1
+            # occupancy maintenance of all S grids before the iteration's
+            # steps, eagerly, as in the sequential loop
+            if occupancy_update_due(cfg, itr):
+                with spans.span("occupancy_update"):
+                    occ_grid.update(lambda pts: stack(pts)[0], generator)
+                    bitfield.copy_(occ_grid.bitfield)
+                occupancy["update_itrs"].append(itr)
+                for s in range(S):
+                    occupancy["occupied_share"][s].append(
+                        _occupied_share(bitfield[s]))
+            # host draws in the JAX batched loop's order: every scene's
+            # input view, then every scene's cached camera; max_thres
+            # once, shared
+            bi = [idx[r.randint(len(idx))]
+                  for idx, r in zip(input_idx_list, host_rngs)]
+            ci = mt = None
+            if use_diffusion:
+                ci = [int(r.randint(n_cache)) for r in host_rngs]
+            fusion = use_diffusion and itr > cfg.start_fusion_step
+            if fusion:
+                mt = min(float(mt_rng.uniform()), 0.99)
+                fusion_subset_steps += int(steps.subsample_fusion)
+            if programs is not None:
+                loss, floss = programs.iteration(itr, vc, bi, ci, mt,
+                                                 fusion)
+            else:
+                loss, floss = _eager_iteration(
+                    steps, vc, cams_vox, rgb, mask, cache, bitfield,
+                    generator, torch.as_tensor(bi, device=device),
+                    None if ci is None else torch.as_tensor(ci,
+                                                            device=device),
+                    mt, fusion)
+            loss_log[0, itr].copy_(loss)
+            if floss is not None:
+                loss_log[1, itr].copy_(floss)
+            if (itr + 1) % fetch_every == 0 or itr == cfg.max_itr - 1:
+                drain(itr)
+            if verbose and itr % 200 == 0 and losses[0]:
+                rate = S * (itr + 1) / (time.perf_counter() - t_start)
+                print(f"itr {itr:5d} loss "
+                      f"{np.mean([l[-1] for l in losses]):.4f} "
+                      f"({rate:.2f} scene-it/s)")
         if iteration_hook is not None:
             iteration_hook(itr)
 
     # ---- Phase C: every scene's eval, as the sequential loop's ----------
+    batch_spans = spans.snapshot(first_span)
     vcfg_eval = active_vcfg(cfg.max_itr)
     results = []
     for s, scene in enumerate(scenes):
@@ -293,15 +306,11 @@ def batched_distillation_loop(
         result.update({
             "losses": losses[s],
             "fusion_losses": fusion_losses[s],
-            "cache_seconds": cache_seconds,
             # UNet evaluations of the batch, each at batch S
             "unet_evals": (models.unet_evals - unet_evals0
                            if models is not None else 0),
-            # the host clock at each iteration's end, and at each loss
-            # read (distill/loop.py's ``sync_times``, ``loop_start``)
-            "iter_times": iter_times,
-            "sync_times": sync_times,
-            "loop_start": t0,
+            # the recorder's spans of the batch (distill/loop.py's)
+            "spans": batch_spans,
             # the graphs' warm-ups, captures and replays (the batch's)
             "fused": None if programs is None else programs.stats(),
             "occupancy": scene_occupancy,

@@ -61,7 +61,11 @@ replay that fails raises: there is no eager fallback.  The
 kernels' launch counters and the UNet evaluations count in Python, so
 each graph records what its capture counted and adds it at each
 replay.  Elsewhere (the CPU) every run is eager, which is how the
-tests hold the fused structure against the unfused loops.
+tests hold the fused structure against the unfused loops.  Each
+program's run is the span recorder's ``graph/<key>`` span, with the
+models', renders' and optimizer's spans under it; as a graph, those are
+captured once as its template and their device stamps replayed
+(``utils/spans.py``).
 """
 from __future__ import annotations
 
@@ -81,16 +85,13 @@ from sparsefusion_tpu_torch.diffusion.plms import (
     plms_step0,
     plms_tail_step,
 )
+from sparsefusion_tpu_torch.utils import spans
 from sparsefusion_tpu_torch.utils.graphs import (
     GraphRunner,
     capturing,
+    key_name,
     launch_counters,
 )
-
-
-def _key_name(key: tuple) -> str:
-    return "/".join(("march" if k.march_steps else "two_phase")
-                    if hasattr(k, "march_steps") else str(k) for k in key)
 
 
 class FusedIterations:
@@ -296,7 +297,7 @@ class FusedIterations:
         a scene axis ``bi`` and ``ci`` hold one index a scene and the
         losses one value a scene; ``mt`` is the batch's.  The buffers hold
         the values until the next iteration."""
-        self._load_draws(bi, ci)
+        self._load_draws(bi, ci, mt if fusion else None)
         run = self.runner.run
         if ci is None:
             run(("input", vc), functools.partial(self.input_iter, vc), itr)
@@ -304,7 +305,6 @@ class FusedIterations:
         if not fusion:
             run(("boot", vc), functools.partial(self.boot_iter, vc), itr)
             return self.loss, self.floss
-        self.mt.fill_(float(mt))
         _, n_steps, _ = host_schedule(mt, self.cfg.plms_steps)
         run(("front", vc), functools.partial(self.fusion_front, vc), itr)
         if n_steps > 0:
@@ -315,22 +315,28 @@ class FusedIterations:
         run(("back", vc), functools.partial(self.fusion_back, vc), itr)
         return self.loss, self.floss
 
-    def _load_draws(self, bi, ci) -> None:
+    def _load_draws(self, bi, ci, mt=None) -> None:
         """The host draws into the index buffers, in one copy (from pinned
-        memory on a CUDA device: no synchronisation)."""
-        rows = np.zeros(tuple(self.draws.shape), np.int64)
-        rows[0] = bi
-        if ci is not None:
-            rows[1] = ci
-        host = torch.from_numpy(rows)
-        if self.runner.graphs:
-            host = host.pin_memory()
-        self.draws.copy_(host, non_blocking=True)
+        memory on a CUDA device: no synchronisation), and a fusion
+        iteration's noise level into its buffer; the span
+        ``distill/draws``."""
+        with spans.span("distill/draws"):
+            if mt is not None:
+                self.mt.fill_(float(mt))
+            rows = np.zeros(tuple(self.draws.shape), np.int64)
+            rows[0] = bi
+            if ci is not None:
+                rows[1] = ci
+            host = torch.from_numpy(rows)
+            if self.runner.graphs:
+                host = host.pin_memory()
+            self.draws.copy_(host, non_blocking=True)
 
     def stats(self) -> dict:
-        """Warm-ups, captures (key, iteration, seconds) and replays."""
+        """Warm-ups, captures (key, iteration) and replays; the captures'
+        seconds are the recorder's ``capture/<key>`` spans."""
         r = self.runner
         return {"graphs": r.graphs, "warmups": r.warmups,
-                "captures": [dict(c, key=_key_name(c["key"]))
+                "captures": [dict(c, key=key_name(c["key"]))
                              for c in r.captures],
                 "replays": r.replays}

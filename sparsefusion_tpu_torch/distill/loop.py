@@ -51,6 +51,18 @@ programs run eagerly.  The sampler in them is the counterpart of
 options change nothing here.  ``loss_fetch_every`` sets how often the
 losses, kept on the device, are read: in one copy every that many
 iterations, at ``eval_every`` and at the end.
+
+The span recorder (``utils/spans.py``) times the loop: Phase A is the
+set-up span ``phase_a``; each iteration is the unit
+``distill/iteration``, which holds the occupancy update
+(``occupancy_update``), the programs (``graph/<key>`` as graphs), the
+loss reads (``loss_read``, where the recorder reads its device stamps)
+and, inside the steps, the renders (``render``), the backward of the
+field's loss (``render_bwd``: the MLP's and K1's backward and, under
+``remat``, the renders' recomputed forward), the field's Adam
+(``ngp_adam``) and the models' ``unet``, ``vae_encode`` and
+``vae_decode``.  The result's ``spans`` are the recorder's spans of the
+call (units only while recording: :func:`spans.enable` or a profiler).
 """
 from __future__ import annotations
 
@@ -92,6 +104,7 @@ from sparsefusion_tpu_torch.render.volume import (
     VolumeRendererConfig,
     render_rays_chunked,
 )
+from sparsefusion_tpu_torch.utils import spans
 from sparsefusion_tpu_torch.utils.graphs import TensorStepLR
 from sparsefusion_tpu_torch.utils.image import huber, to_uint8
 from sparsefusion_tpu_torch.utils.metrics import psnr, ssim
@@ -224,8 +237,9 @@ class NGPOptimizer:
         self.adam.zero_grad(set_to_none=True)
 
     def step(self) -> None:
-        self.adam.step()
-        self.schedule.step()
+        with spans.span("ngp_adam"):
+            self.adam.step()
+            self.schedule.step()
 
 
 def make_ngp_optimizer(cfg: DistillConfig, field: NGPField) -> NGPOptimizer:
@@ -378,11 +392,12 @@ class SceneSteps:
         return loss
 
     def _render(self, vc, cam, generator, draws, ray_idx=None, bitfield=None):
-        return _render_cam(self.field, cam, self.render_hw, vc, perturb=True,
-                           generator=generator, ray_idx=ray_idx,
-                           remat=self.cfg.remat, jitter=draws.get("jitter"),
-                           u=draws.get("u"),
-                           near_far_fn=self.make_nff(bitfield))
+        with spans.span("render"):
+            return _render_cam(self.field, cam, self.render_hw, vc,
+                               perturb=True, generator=generator,
+                               ray_idx=ray_idx, remat=self.cfg.remat,
+                               jitter=draws.get("jitter"), u=draws.get("u"),
+                               near_far_fn=self.make_nff(bitfield))
 
     def update(self, losses_fn, *args, **kwargs) -> torch.Tensor:
         """Loss, gradient and Adam update, in place on the field's
@@ -396,7 +411,8 @@ class SceneSteps:
         """The gradient of ``loss`` (summed) and the Adam update, after a
         ``optimizer.zero_grad()`` before the loss's forward pass; returns
         the detached loss."""
-        loss.sum().backward(retain_graph=retain_graph)
+        with spans.span("render_bwd"):
+            loss.sum().backward(retain_graph=retain_graph)
         self.optimizer.step()
         return loss.detach()
 
@@ -624,18 +640,20 @@ def distillation_loop(
 ) -> Dict[str, Any]:
     """Optimize an NGP for one scene on the device of ``generator``, which
     makes every random draw; returns params, metrics, renders, the losses,
-    the per-iteration host clock and the loss reads' (``sync_times``), the
-    iterations by render mode, the subsampled fusion steps, the fused
-    programs' captures and replays and, with ``cfg.use_occupancy``, the
-    occupancy grid's updates.  ``models`` (the bundle of
+    the recorder's spans of the call (``spans``), the iterations by
+    render mode, the subsampled fusion steps, the fused programs'
+    captures and replays and, with ``cfg.use_occupancy``, the occupancy
+    grid's updates.  ``models`` (the bundle of
     ``models.build_models``) is needed with ``use_diffusion`` only;
     ``lpips_fn`` adds the fusion loss's perceptual term and the Phase C
     ``lpips`` column.  ``iteration_hook`` is called with each iteration's
-    index at its end, after its loss read if one is due (a measurement's
-    hook: a profiler window, a counter)."""
+    index at its end, after its loss read if one is due and outside its
+    unit span (a measurement's hook: a profiler window, a counter)."""
     if use_diffusion and models is None:
         raise ValueError("the diffusion arm needs the EFT/VAE/UNet models")
     device = generator.device
+    first_span = spans.mark()
+    spans.use_device(device)
     image_size = scene.images.shape[1]
     render_hw = image_size // cfg.hw_scale
 
@@ -654,17 +672,16 @@ def distillation_loop(
 
     # ---- Phase A: EFT feature cache -----------------------------------
     feature_cache = None
-    cache_seconds = 0.0
     if use_diffusion:
-        t0 = time.time()
-        feature_cache = build_feature_cache(models, scene_cameras, scene_rgb,
-                                            input_idx, cfg, image_size)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        cache_seconds = time.time() - t0
+        with spans.setup_span("phase_a") as phase_a:
+            feature_cache = build_feature_cache(models, scene_cameras,
+                                                scene_rgb, input_idx, cfg,
+                                                image_size)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
         if verbose:
             print(f"cached {len(feature_cache['cameras_vox'])} features in "
-                  f"{cache_seconds:.1f}s")
+                  f"{(phase_a.t1 - phase_a.t0) * 1e-9:.1f}s")
     n_cache = 0 if feature_cache is None else len(
         feature_cache["cameras_vox"])
 
@@ -684,8 +701,7 @@ def distillation_loop(
         # one buffer for the loop: each grid update is copied into it,
         # so the fused programs' graphs read the new bitfield
         bitfield = occ_grid.full_bitfield()
-        occupancy = {"update_itrs": [], "update_seconds": [],
-                     "occupied_share": []}
+        occupancy = {"update_itrs": [], "occupied_share": []}
 
     def occ_density_fn(pts):
         return field(pts)[0]
@@ -710,72 +726,73 @@ def distillation_loop(
     loss_log = torch.zeros((2 if use_diffusion else 1, cfg.max_itr),
                            device=device)
     losses, fusion_losses = [], []
-    iter_times, sync_times = [], []
     fetch_every = max(1, int(cfg.loss_fetch_every))
 
     def drain(itr):
-        read = loss_log[:, len(losses):itr + 1].tolist()
+        with spans.span("loss_read"):
+            read = loss_log[:, len(losses):itr + 1].tolist()
+            spans.sync_point()
         losses.extend(read[0])
         if use_diffusion:
             fusion_losses.extend(read[1])
-        sync_times.append((itr, time.time()))
 
     render_modes = {"two_phase": 0, "march": 0}
     fusion_subset_steps = 0
-    t0 = time.time()
+    t_start = time.perf_counter()
     for itr in range(cfg.max_itr):
-        vc = active_vcfg(itr)
-        render_modes["march" if vc.march_steps else "two_phase"] += 1
-        # occupancy maintenance before the iteration's steps, eagerly, as
-        # in the JAX loop
-        if occupancy_update_due(cfg, itr):
-            t_occ = time.time()
-            occ_grid.update(occ_density_fn, generator)   # reads the mean
-            bitfield.copy_(occ_grid.bitfield)
-            occupancy["update_itrs"].append(itr)
-            occupancy["update_seconds"].append(time.time() - t_occ)
-            occupancy["occupied_share"].append(_occupied_share(bitfield))
-        # host draws in the JAX package's order: input view, then the
-        # cached camera and the noise level
-        bi = input_idx[host_rng.randint(len(input_idx))]
-        ci = mt = None
-        if use_diffusion:
-            ci = int(host_rng.randint(n_cache))
-            mt = min(float(host_rng.uniform()), 0.99)
-        fusion = use_diffusion and itr > cfg.start_fusion_step
-        fusion_subset_steps += int(fusion and steps.subsample_fusion)
-        if programs is not None:
-            loss, floss = programs.iteration(itr, vc, bi, ci, mt, fusion)
-        else:
-            loss = steps.input_step(
-                vc, get_camera_slice(scene_vox, [bi]), scene_rgb[bi],
-                scene_mask[bi] if scene_mask is not None else None,
-                generator, bitfield=bitfield)
-            floss = None
-            if fusion:
-                floss = steps.fusion_step(
-                    vc, feature_cache["cameras_vox"][ci],
-                    feature_cache["features"][ci], mt, generator,
-                    bitfield=bitfield)
-            elif use_diffusion:
-                floss = steps.bootstrap_step(
-                    vc, feature_cache["cameras_vox"][ci],
-                    feature_cache["eft_images"][ci], generator,
-                    bitfield=bitfield)
-        loss_log[0, itr].copy_(loss)
-        if floss is not None:
-            loss_log[1, itr].copy_(floss)
-        if (itr + 1) % fetch_every == 0 or itr == cfg.max_itr - 1:
-            drain(itr)
-        iter_times.append(time.time())
-        if verbose and itr % 200 == 0 and losses:
-            print(f"itr {itr:5d} loss {losses[-1]:.4f} "
-                  f"({(itr + 1) / (time.time() - t0):.2f} it/s)")
-        if (cfg.eval_every > 0 and save_dir is not None
-                and itr % cfg.eval_every == 0 and itr > 0):
-            drain(itr)
-            _save_intermediate(save_dir, scene.sequence_name, losses,
-                               fusion_losses)
+        with spans.unit("distill/iteration", itr):
+            vc = active_vcfg(itr)
+            render_modes["march" if vc.march_steps else "two_phase"] += 1
+            # occupancy maintenance before the iteration's steps, eagerly,
+            # as in the JAX loop
+            if occupancy_update_due(cfg, itr):
+                with spans.span("occupancy_update"):
+                    occ_grid.update(occ_density_fn, generator)  # reads
+                    bitfield.copy_(occ_grid.bitfield)
+                occupancy["update_itrs"].append(itr)
+                occupancy["occupied_share"].append(
+                    _occupied_share(bitfield))
+            # host draws in the JAX package's order: input view, then the
+            # cached camera and the noise level
+            bi = input_idx[host_rng.randint(len(input_idx))]
+            ci = mt = None
+            if use_diffusion:
+                ci = int(host_rng.randint(n_cache))
+                mt = min(float(host_rng.uniform()), 0.99)
+            fusion = use_diffusion and itr > cfg.start_fusion_step
+            fusion_subset_steps += int(fusion and steps.subsample_fusion)
+            if programs is not None:
+                loss, floss = programs.iteration(itr, vc, bi, ci, mt, fusion)
+            else:
+                loss = steps.input_step(
+                    vc, get_camera_slice(scene_vox, [bi]), scene_rgb[bi],
+                    scene_mask[bi] if scene_mask is not None else None,
+                    generator, bitfield=bitfield)
+                floss = None
+                if fusion:
+                    floss = steps.fusion_step(
+                        vc, feature_cache["cameras_vox"][ci],
+                        feature_cache["features"][ci], mt, generator,
+                        bitfield=bitfield)
+                elif use_diffusion:
+                    floss = steps.bootstrap_step(
+                        vc, feature_cache["cameras_vox"][ci],
+                        feature_cache["eft_images"][ci], generator,
+                        bitfield=bitfield)
+            loss_log[0, itr].copy_(loss)
+            if floss is not None:
+                loss_log[1, itr].copy_(floss)
+            if (itr + 1) % fetch_every == 0 or itr == cfg.max_itr - 1:
+                drain(itr)
+            if verbose and itr % 200 == 0 and losses:
+                print(f"itr {itr:5d} loss {losses[-1]:.4f} "
+                      f"({(itr + 1) / (time.perf_counter() - t_start):.2f}"
+                      " it/s)")
+            if (cfg.eval_every > 0 and save_dir is not None
+                    and itr % cfg.eval_every == 0 and itr > 0):
+                drain(itr)
+                _save_intermediate(save_dir, scene.sequence_name, losses,
+                                   fusion_losses)
         if iteration_hook is not None:
             iteration_hook(itr)
 
@@ -787,25 +804,19 @@ def distillation_loop(
     result.update({
         "losses": losses,
         "fusion_losses": fusion_losses,
-        # seconds of Phase A, and the UNet evaluations of this scene
-        "cache_seconds": cache_seconds,
+        # the UNet evaluations of this scene
         "unet_evals": (models.unet_evals - unet_evals0
                        if models is not None else 0),
-        # host wall clock at the end of each iteration.  The host waits
-        # for the device only where it reads the losses (every
-        # cfg.loss_fetch_every iterations), so with a cadence above 1 the
-        # differences are dispatch times: ``sync_times``, the (iteration,
-        # wall clock) of each read, time the iterations themselves, from
-        # ``loop_start``, the wall clock when the first began
-        "iter_times": iter_times,
-        "sync_times": sync_times,
-        "loop_start": t0,
+        # the recorder's spans of this call: set-up (phase_a, the graphs'
+        # warmup/<key> and capture/<key>) always, the iterations' while
+        # recording (utils/spans.py)
+        "spans": spans.snapshot(first_span),
         # with cfg.fused_steps: the fused programs' warm-ups, captures
-        # (key, iteration, seconds) and replays (distill/fused.py)
+        # (key, iteration) and replays (distill/fused.py)
         "fused": None if programs is None else programs.stats(),
         # with cfg.use_occupancy: the iterations before which the grid was
-        # updated, each update's seconds (it ends in a read of the mean)
-        # and the occupied share of the bitfield after it
+        # updated (each an ``occupancy_update`` span) and the occupied
+        # share of the bitfield after it
         "occupancy": occupancy,
         # iterations by render mode (single-pass march or two-phase), and
         # the fusion steps that took their gradient on a ray subset

@@ -153,8 +153,12 @@ def sass_counts() -> dict:
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels' shared library once per
-    process, with argtypes declared for every entry point."""
-    lib = ctypes.CDLL(str(build()))
+    process, with argtypes declared for every entry point (the span
+    recorder's set-up span ``kernels/load``)."""
+    from sparsefusion_tpu_torch.utils import spans
+
+    with spans.setup_span("kernels/load"):
+        lib = ctypes.CDLL(str(build()))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name in ("sf_grid_encode_fwd", "sf_grid_encode_bwd"):
         fn = getattr(lib, name)
@@ -167,6 +171,8 @@ def load_library() -> ctypes.CDLL:
     lib.sf_imagen_attention_fwd_bf16.restype = i32
     lib.sf_row_gather.argtypes = [vp, vp, vp, i64, i32, i32, vp]
     lib.sf_row_gather.restype = i32
+    lib.sf_span_stamp.argtypes = [vp, vp, i64, i64, vp]
+    lib.sf_span_stamp.restype = i32
     return lib
 
 

@@ -12,8 +12,10 @@ of one encoding, every scene's encodings (S, N, L*C) or table gradient
 Each wrapper checks its tensors, allocates its output, launches on the
 current stream and counts its launches in ``<wrapper>.launches`` (a
 scene-batched launch once) and the scenes they encoded in
-``<wrapper>.scenes`` (S a launch); the forward's launches on a bf16
-table also in ``grid_encode_cuda.launches_bf16``.
+``<wrapper>.scenes`` (S a launch); the forward's points (S x N a
+launch) go to the span recorder's innermost open span as
+``k1_points``, and its launches on a bf16 table to
+``grid_encode_cuda.launches_bf16``.
 :func:`level_plan` mirrors, in Python, how the kernels reduce each
 level's index to the level's size.
 """
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from sparsefusion_tpu_torch.ops.grid_encode import GridEncoding
+from sparsefusion_tpu_torch.utils import spans
 
 MAX_LEVELS = 32
 _LEVEL_DIMS = (1, 2, 4, 8)
@@ -183,6 +186,7 @@ def grid_encode_cuda(x01: torch.Tensor, table: torch.Tensor,
     grid_encode_cuda.launches += 1
     grid_encode_cuda.scenes += _scenes(x01)
     grid_encode_cuda.launches_bf16 += table.dtype == torch.bfloat16
+    spans.count("k1_points", _scenes(x01) * x01.shape[-2])
     return out
 
 

@@ -3,7 +3,10 @@ trio.
 
 Counterpart of ``sparsefusion_tpu/models.py``.  Images enter and leave
 in the JAX package's NHWC layout (scenes and renders are NHWC); latents
-and the EFT's feature images are NCHW, the networks' layout.
+and the EFT's feature images are NCHW, the networks' layout.  The
+sampler's UNet evaluations and the VAE's encodes and decodes are the
+span recorder's spans ``unet`` (with its batch, ``unet_batch``),
+``vae_encode`` and ``vae_decode`` (``utils/spans.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from sparsefusion_tpu_torch.nn.eft import EFTConfig, EpipolarFeatureTransformer
 from sparsefusion_tpu_torch.nn.flax_layout import init_like_flax_
 from sparsefusion_tpu_torch.nn.unet import EfficientUNet, UNetConfig
 from sparsefusion_tpu_torch.nn.vae import AutoencoderKL, VAEConfig
+from sparsefusion_tpu_torch.utils import spans
 from sparsefusion_tpu_torch.utils.image import normalize, unnormalize
 
 Z_SCALE_FACTOR = 0.18215  # the SD latent scale
@@ -72,7 +76,8 @@ class SparseFusionModels:
         ``unet_apply_fn(bf16=True)`` with ``sampler_unet_params(True)``."""
         self.unet_evals += 1
         unet = self.unet_half() if bf16 else self.unet
-        return unet(x, log_snr, cond_images, keep_mask)
+        with spans.span("unet", unet_batch=x.shape[0]):
+            return unet(x, log_snr, cond_images, keep_mask)
 
     def unet_half(self) -> EfficientUNet:
         """The sampler's bf16 copy of the UNet, cast once on the device
@@ -90,14 +95,16 @@ class SparseFusionModels:
 
     def vae_encode(self, images_01: torch.Tensor) -> torch.Tensor:
         """[0, 1] RGB (B, H, W, 3) -> scaled latents (B, 4, H/8, W/8)."""
-        x = normalize(images_01)
-        return self.vae.encode_mode(x.permute(0, 3, 1, 2)) \
-            * self.z_scale_factor
+        with spans.span("vae_encode"):
+            x = normalize(images_01)
+            return self.vae.encode_mode(x.permute(0, 3, 1, 2)) \
+                * self.z_scale_factor
 
     def vae_decode(self, z: torch.Tensor) -> torch.Tensor:
         """Scaled latents (B, 4, h, w) -> [0, 1] RGB (B, 8h, 8w, 3)."""
-        x = self.vae.decode(z / self.z_scale_factor)
-        return unnormalize(x).permute(0, 2, 3, 1)
+        with spans.span("vae_decode"):
+            x = self.vae.decode(z / self.z_scale_factor)
+            return unnormalize(x).permute(0, 2, 3, 1)
 
     def eft_encode(self, images: torch.Tensor) -> torch.Tensor:
         """Context images (NC, H, W, 3) -> (NC, 512, H/2, W/2) latents."""

@@ -25,6 +25,12 @@ graph, so replays draw what the eager steps draw, in their order.  A
 step's losses land in a static
 (3,) buffer that the next step of its size overwrites: the caller copies
 them out, into a :class:`LossRing` that it reads in one transfer.
+
+Each call is the span recorder's unit ``train/step`` (its index the
+call's), which holds the batch's packing (``train/pack``) and the
+program's run (``graph/step/<size>``, with the step's own spans under
+it); the ring's read is ``loss_read``, where the recorder also reads its
+device stamps (``utils/spans.py``).
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from typing import Dict, List
 import torch
 
 from sparsefusion_tpu_torch.core.cameras import Cameras
+from sparsefusion_tpu_torch.utils import spans
 from sparsefusion_tpu_torch.utils.graphs import GraphRunner, launch_counters
 
 _IMAGES = ("query_rgb", "query_valid", "context_rgb")
@@ -68,7 +75,9 @@ class LossRing:
         self.n += 1
 
     def read(self) -> List[List[float]]:
-        rows = self.buf[:self.n].tolist()
+        with spans.span("loss_read"):
+            rows = self.buf[:self.n].tolist()
+            spans.sync_point()
         self.n = 0
         return rows
 
@@ -112,19 +121,22 @@ class FusedTrainStep:
         return shapes, flat, static, torch.zeros(3, device=self.device)
 
     def __call__(self, batch: Dict) -> torch.Tensor:
-        parts = _host_parts(batch)
-        size = batch["context_rgb"].shape[1]
-        if size not in self._static:
-            self._static[size] = self._make_static(parts, batch)
-        shapes, flat, static, losses = self._static[size]
-        if [p.shape for p in parts] != shapes:
-            raise ValueError("a batch's shapes changed under one context "
-                             "size")
-        host = torch.empty(flat.shape, pin_memory=self.runner.graphs)
-        torch.cat([p.reshape(-1) for p in parts], out=host)
-        flat.copy_(host, non_blocking=True)
-        self.runner.run(("step", size),
-                        functools.partial(self._program, size), self.calls)
+        with spans.unit("train/step", self.calls):
+            parts = _host_parts(batch)
+            size = batch["context_rgb"].shape[1]
+            if size not in self._static:
+                self._static[size] = self._make_static(parts, batch)
+            shapes, flat, static, losses = self._static[size]
+            if [p.shape for p in parts] != shapes:
+                raise ValueError("a batch's shapes changed under one "
+                                 "context size")
+            with spans.span("train/pack"):
+                host = torch.empty(flat.shape, pin_memory=self.runner.graphs)
+                torch.cat([p.reshape(-1) for p in parts], out=host)
+                flat.copy_(host, non_blocking=True)
+            self.runner.run(("step", size),
+                            functools.partial(self._program, size),
+                            self.calls)
         self.calls += 1
         self.step.draws = self._draws[size]
         return losses
@@ -135,7 +147,8 @@ class FusedTrainStep:
         self._draws[size] = self.step.draws
 
     def stats(self) -> dict:
-        """Warm-ups, captures (context size, call, seconds), replays."""
+        """Warm-ups, captures (context size, call), replays; the captures'
+        seconds are the recorder's ``capture/step/<size>`` spans."""
         r = self.runner
         return {"graphs": r.graphs, "warmups": r.warmups,
                 "captures": [dict(c, key=c["key"][1]) for c in r.captures],

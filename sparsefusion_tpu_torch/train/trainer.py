@@ -35,6 +35,13 @@ hold one scene each is the JAX step's mean over all scenes.
 The EFT's modules stay in eval mode: its trunk's batch norm normalises
 with the running statistics while its parameters train, as the JAX step's
 ``encode(train=False)`` does.
+
+The step's layers are the span recorder's spans (``utils/spans.py``),
+eager or captured alike: ``eft`` (the EFT's forward), ``vae_encode``,
+``unet_loss`` (the masked eps loss's forward through the UNet), per
+scene its backward ``unet_loss_bwd`` until the UNet hands the EFT's
+features their gradient, where a gradient hook splits off ``eft_bwd``
+(the EFT's backward, with a trained EFT), then ``guard`` and ``adam``.
 """
 from __future__ import annotations
 
@@ -45,7 +52,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from sparsefusion_tpu_torch.core.cameras import (
     Cameras,
@@ -55,6 +61,7 @@ from sparsefusion_tpu_torch.core.cameras import (
 from sparsefusion_tpu_torch.core.rays import grid_ray_bundle
 from sparsefusion_tpu_torch.models import unet_compute_view
 from sparsefusion_tpu_torch.ops.image import grid_sample_bilinear, resize_bilinear
+from sparsefusion_tpu_torch.utils import spans
 from sparsefusion_tpu_torch.utils.graphs import TensorStepLR
 from sparsefusion_tpu_torch.utils.image import huber
 
@@ -214,7 +221,12 @@ def prepare_scene_batch(scenes, query_idx: Sequence[int],
     region, and per scene the query and context cameras relative to the
     query's rotation (``center_at_origin=False``) and the context's depth
     range (computed on the host, for the eager step; the program computes
-    it on the device)."""
+    it on the device).  The span ``train/batch``."""
+    with spans.span("train/batch"):
+        return _scene_batch(scenes, query_idx, context_idx, device)
+
+
+def _scene_batch(scenes, query_idx, context_idx, device) -> Dict:
     q_rgb, q_valid, q_cam, c_rgb, c_cams, ranges = [], [], [], [], [], []
     for scene, qi, ci in zip(scenes, query_idx, context_idx):
         rel = get_relative_cameras(scene.cameras(), [qi],
@@ -315,8 +327,7 @@ class TrainStep:
         else:
             min_d, max_d = scene_depth_range(batch["context_cams"][i])
 
-        with record_function("train/eft"), \
-                torch.set_grad_enabled(cfg.train_eft):
+        with spans.span("eft"), torch.set_grad_enabled(cfg.train_eft):
             bundle = grid_ray_bundle(batch["query_cam"][i], hw, hw,
                                      cfg.eft_n_pts, min_d, max_d)
             rgb, feat = self.eft_query(
@@ -327,8 +338,12 @@ class TrainStep:
                 batch["context_cams"][i])
         rgb = rgb.reshape(hw, hw, 3)
         feat = feat.reshape(hw, hw, -1)
+        if feat.requires_grad and spans.active():
+            # the UNet's backward ends where the features get their
+            # gradient; the rest of the backward is the EFT's
+            feat.register_hook(_split_eft_backward)
 
-        with record_function("train/vae_encode"), torch.no_grad():
+        with torch.no_grad():
             z = models.vae_encode(q_rgb[None])            # (1, 4, h, w)
         z_b = z.expand(dbs, *z.shape[1:])
         feat_b = feat.permute(2, 0, 1)[None].expand(dbs, -1, -1, -1)
@@ -341,7 +356,7 @@ class TrainStep:
             times = models.ddpm.schedule.sample_random_times(dbs, generator)
         drawn = {"times": times}
         self.draws.append(drawn)
-        with record_function("train/unet_loss"):
+        with spans.span("unet_loss"):
             d_loss = models.ddpm.p_losses(
                 self._denoise, z_b, times, generator, cond_images=feat_b,
                 loss_mask=loss_mask, noise=draws.get("noise"),
@@ -375,6 +390,7 @@ class TrainStep:
                 if i < n - 1:
                     for module in self.ddp_modules:
                         stack.enter_context(module.no_sync())
+                stack.enter_context(spans.backward_span("unet_loss_bwd"))
                 (losses[0] / n).backward()
             sums += torch.stack([x.detach() for x in losses])
         return sums / n
@@ -382,14 +398,14 @@ class TrainStep:
     def __call__(self, batch: Dict, generator: Optional[torch.Generator] = None,
                  draws: Optional[List[Dict]] = None):
         means = self.losses_and_gradients(batch, generator, draws)
-        with record_function("train/guard"):
+        with spans.span("guard"):
             if any(opt.guard for opt in self.opts):
                 # one device reduction per optimizer, one host read
                 finite = (torch.cat([opt.nonfinite_flag() for opt in self.opts])
                           == 0).tolist()
             else:
                 finite = [True] * len(self.opts)
-        with record_function("train/adam"):
+        with spans.span("adam"):
             for opt, ok in zip(self.opts, finite):
                 opt.step(ok)
         loss, d_loss, color_loss = means
@@ -405,13 +421,17 @@ class TrainStep:
         its guarded update on the device (:meth:`GuardedAdam.step_on_device`).
         ``train/fused.py`` captures it into CUDA graphs."""
         means = self.losses_and_gradients(batch, generator, draws)
-        with record_function("train/guard"):
+        with spans.span("guard"):
             flags = [opt.nonfinite_flag() if opt.guard else None
                      for opt in self.opts]
-        with record_function("train/adam"):
+        with spans.span("adam"):
             for opt, flag in zip(self.opts, flags):
                 opt.step_on_device(flag)
         return means
+
+
+def _split_eft_backward(grad: torch.Tensor) -> None:
+    spans.switch("eft_bwd", expect="unet_loss_bwd")
 
 
 def make_train_step(models, cfg: TrainConfig, unet_opt: GuardedAdam,

@@ -14,17 +14,25 @@ and of the train step (``train/fused.py``) share.
 * :func:`launch_counters`: the kernels' launch counters and the UNet
   evaluations count in Python, so each graph records what its capture
   counted and adds it at each replay.
+* The span recorder (``utils/spans.py``): each key's first run is the
+  set-up span ``warmup/<key>``, its capture ``capture/<key>``, which
+  records the graph's span template (the spans opened inside it, their
+  counters and their captured device stamps) and calibrates the device
+  clock against the host's; each later run is the
+  span ``graph/<key>`` (on the CPU, every run), whose replay's stamps
+  the recorder ties to the running unit.
 * :class:`TensorStepLR`: a learning-rate staircase ticked by device
   operations, so that a captured optimizer update ticks it at each
   replay; its tick can be masked by a device flag (the non-finite guard).
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from sparsefusion_tpu_torch.utils import spans
 
 
 def launch_counters(models=None) -> List[Tuple[object, str]]:
@@ -45,6 +53,13 @@ def launch_counters(models=None) -> List[Tuple[object, str]]:
     return counters
 
 
+def key_name(key: tuple) -> str:
+    """A static key as a span's name: its parts joined by "/", a render
+    config as its mode ("two_phase" or "march")."""
+    return "/".join(("march" if k.march_steps else "two_phase")
+                    if hasattr(k, "march_steps") else str(k) for k in key)
+
+
 def capturing() -> bool:
     """Whether the current CUDA stream is capturing a graph."""
     return torch.cuda.is_available() and \
@@ -55,7 +70,8 @@ class GraphRunner:
     """Runs programs under static keys: on a CUDA device eagerly the first
     time, captured into a CUDA graph the second, replayed from then on;
     on any other device eagerly every time.  ``captures`` lists each
-    capture's key, the caller's ``itr`` and its seconds."""
+    capture's key and the caller's ``itr``; its host seconds are the
+    recorder's ``capture/<key>`` span."""
 
     def __init__(self, device: torch.device, generator: torch.Generator,
                  counters: List[Tuple[object, str]]):
@@ -63,20 +79,29 @@ class GraphRunner:
         self.device = device
         self.generator = generator
         self.counters = counters
-        self._captured: Dict[tuple, Tuple[torch.cuda.CUDAGraph, list]] = {}
+        self._captured: Dict[tuple, tuple] = {}
+        self._names: Dict[tuple, str] = {}
         self._warm = set()
         self.warmups = 0
         self.replays = 0
         self.captures: List[dict] = []
         if self.graphs:
             self._stream = torch.cuda.Stream(device)
+            spans.use_device(device)
 
     def _read(self) -> list:
         return [getattr(o, a) for o, a in self.counters]
 
+    def _name(self, key: tuple) -> str:
+        name = self._names.get(key)
+        if name is None:
+            name = self._names[key] = key_name(key)
+        return name
+
     def run(self, key: tuple, program, itr: int) -> None:
         if not self.graphs:
-            program()
+            with spans.span("graph/" + self._name(key)):
+                program()
             return
         entry = self._captured.get(key)
         if entry is None:
@@ -85,13 +110,15 @@ class GraphRunner:
                 self.warmups += 1
                 current = torch.cuda.current_stream(self.device)
                 self._stream.wait_stream(current)
-                with torch.cuda.stream(self._stream):
+                with spans.setup_span("warmup/" + self._name(key)), \
+                        torch.cuda.stream(self._stream):
                     program()
                 current.wait_stream(self._stream)
                 return
             entry = self._capture(key, program, itr)
-        graph, counted = entry
-        graph.replay()
+        graph, counted, template = entry
+        with spans.replay(template):
+            graph.replay()
         for (owner, attr), n in zip(self.counters, counted):
             setattr(owner, attr, getattr(owner, attr) + n)
         self.replays += 1
@@ -101,24 +128,26 @@ class GraphRunner:
         graph.register_generator_state(self.generator)
         before = self._read()
         current = torch.cuda.current_stream(self.device)
-        torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph, stream=self._stream):
-                program()
-        except BaseException:
-            # a failed capture's exit leaves the capture stream current
-            torch.cuda.set_stream(current)
-            raise
-        torch.cuda.synchronize(self.device)
-        seconds = time.perf_counter() - t0
+        name = self._name(key)
+        with spans.setup_span("capture/" + name):
+            torch.cuda.synchronize(self.device)
+            try:
+                with torch.cuda.graph(graph, stream=self._stream), \
+                        spans.capture("graph/" + name) as template:
+                    program()
+            except BaseException:
+                # a failed capture's exit leaves the capture stream current
+                torch.cuda.set_stream(current)
+                raise
+            torch.cuda.synchronize(self.device)
+        spans.calibrate()
         after = self._read()
         # the capture launched nothing; each replay adds what it counted
         for (owner, attr), n in zip(self.counters, before):
             setattr(owner, attr, n)
-        entry = (graph, [a - b for a, b in zip(after, before)])
+        entry = (graph, [a - b for a, b in zip(after, before)], template)
         self._captured[key] = entry
-        self.captures.append({"key": key, "itr": itr, "seconds": seconds})
+        self.captures.append({"key": key, "itr": itr})
         return entry
 
 

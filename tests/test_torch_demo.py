@@ -137,9 +137,12 @@ def test_demo_cpu_scene_batch(tmp_path, capsys):
         str(tmp_path)])
     assert "scene batch: [0, 1]" in capsys.readouterr().out
     assert len(results) == 3
-    # the batch's two scenes share its iteration clock
-    assert results[0]["iter_times"] is results[1]["iter_times"]
-    assert results[2]["iter_times"] is not results[0]["iter_times"]
+    # the batch's two scenes share its spans (the recorder's record of
+    # the batch's loop)
+    assert results[0]["spans"] is results[1]["spans"]
+    assert results[2]["spans"] is not results[0]["spans"]
+    assert [s["name"] for s in results[0]["spans"]] == \
+        [s["name"] for s in results[2]["spans"]]
     for i, r in enumerate(results):
         assert len(r["losses"]) == 2 and np.isfinite(r["losses"]).all()
         assert set(_metrics(tmp_path / "metrics" / f"any_00{i}_c2.txt")) \

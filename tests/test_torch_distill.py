@@ -29,6 +29,7 @@ from sparsefusion_tpu_torch.data.synthetic import make_synthetic_scene
 from sparsefusion_tpu_torch.distill import loop as tloop
 from sparsefusion_tpu_torch.nn.ngp import NGPConfig, NGPField, load_jax_params
 from sparsefusion_tpu_torch.render.volume import VolumeRendererConfig
+from sparsefusion_tpu_torch.utils import spans
 
 torch.set_num_threads(2)
 
@@ -165,9 +166,13 @@ def test_loop_runs_the_occupancy_preset(monkeypatch):
         ngp=NGPConfig(num_levels=4, level_dim=4, log2_hashmap_size=10,
                       table_dtype="bfloat16"))
     assert cfg.use_occupancy and cfg.fusion_rays == 4096 and not cfg.remat
-    out = tloop.distillation_loop(None, scene, [0, 1], cfg,
-                                  torch.Generator().manual_seed(0),
-                                  use_diffusion=False, verbose=False)
+    spans.enable()
+    try:
+        out = tloop.distillation_loop(None, scene, [0, 1], cfg,
+                                      torch.Generator().manual_seed(0),
+                                      use_diffusion=False, verbose=False)
+    finally:
+        spans.disable()
     assert len(out["losses"]) == 30 and np.isfinite(out["losses"]).all()
     assert max(out["losses"]) < 10.0
     occ = out["occupancy"]
@@ -176,6 +181,9 @@ def test_loop_runs_the_occupancy_preset(monkeypatch):
     assert out["render_modes"] == {"two_phase": 16, "march": 14}
     # the density blob at the origin is occupied, the box's corners not
     assert all(0.0 < s < 1.0 for s in occ["occupied_share"])
-    assert all(s >= 0 for s in occ["update_seconds"])
+    # each update is an ``occupancy_update`` span of its iteration
+    updates = [s for s in out["spans"] if s["name"] == "occupancy_update"]
+    assert [s["unit"] for s in updates] == [8, 16, 24]
+    assert all(s["t1"] >= s["t0"] for s in updates)
     assert np.isfinite(out["renders"]).all()
     assert np.isfinite(out["metrics"]["psnr"])

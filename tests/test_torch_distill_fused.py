@@ -19,8 +19,9 @@ same functions that a CUDA device captures into graphs.
   ``_step0_jit`` / ``_scan_tail_jit``) with the JAX draws passed in, and
   the tensor-time sampler against ``plms_sample_host(scan_tail=True)``.
 * ``loss_fetch_every``: the losses equal per-iteration reads, and the
-  reads' iterations (``sync_times``) are the JAX loop's, in the
-  sequential loop and the scene-batched one.
+  reads' iterations (the port's ``loss_read`` spans, the JAX loop's
+  ``sync_times``) are the JAX loop's, in the sequential loop and the
+  scene-batched one.
 * The learning rates' staircase on tensors equals ``StepLR``'s, and
   ``--no_fused`` sets ``fused_steps=False``.
 """
@@ -68,6 +69,7 @@ from sparsefusion_tpu_torch.distill.fused import FusedIterations
 from sparsefusion_tpu_torch.models import build_models, narrow_model_configs
 from sparsefusion_tpu_torch.nn.ngp import NGPConfig, NGPField, load_jax_params
 from sparsefusion_tpu_torch.render.volume import VolumeRendererConfig
+from sparsefusion_tpu_torch.utils import spans
 
 torch.set_num_threads(2)
 
@@ -423,6 +425,22 @@ def test_tensor_time_sampler_matches_jax_host_sampler(max_thres):
 
 # ---- loss_fetch_every ---------------------------------------------------
 
+def _recorded(run, *args):
+    """``run(*args)`` with every iteration recorded by the span
+    recorder."""
+    spans.enable()
+    try:
+        return run(*args)
+    finally:
+        spans.disable()
+
+
+def _reads(result):
+    """The iterations of a port loop's loss reads (its ``loss_read``
+    spans)."""
+    return [s["unit"] for s in result["spans"] if s["name"] == "loss_read"]
+
+
 def test_loss_fetch_every_gives_the_per_iteration_losses():
     """Reading every 3 iterations gives the losses of reading every one;
     the reads at iterations 2, 5 and the last (7)."""
@@ -437,11 +455,12 @@ def test_loss_fetch_every_gives_the_per_iteration_losses():
                                        torch.Generator().manual_seed(1),
                                        use_diffusion=False, verbose=False)
 
-    each, every3 = run(1), run(3)
+    each, every3 = _recorded(run, 1), _recorded(run, 3)
     assert every3["losses"] == each["losses"] and len(each["losses"]) == 8
-    assert [i for i, _ in each["sync_times"]] == list(range(8))
-    assert [i for i, _ in every3["sync_times"]] == [2, 5, 7]
-    assert len(every3["iter_times"]) == 8
+    assert _reads(each) == list(range(8))
+    assert _reads(every3) == [2, 5, 7]
+    assert [s["unit"] for s in every3["spans"] if s["kind"] == "unit"] \
+        == list(range(8))
 
 
 def _stub_jax_loop(monkeypatch, cfg, scene, save_dir):
@@ -517,19 +536,19 @@ def _stub_port_loop(monkeypatch, cfg, scene, save_dir):
 @pytest.mark.parametrize("every,eval_every", [(3, 5), (20, 0), (1, 4)])
 def test_loss_reads_follow_the_jax_loop(monkeypatch, tmp_path, every,
                                         eval_every):
-    """The iterations of the loss reads (``sync_times``: every
-    ``loss_fetch_every``, at ``eval_every`` and at the end) and the losses
-    read, against the JAX loop's, both with their steps stubbed."""
+    """The iterations of the loss reads (the port's ``loss_read`` spans,
+    the JAX loop's ``sync_times``: every ``loss_fetch_every``, at
+    ``eval_every`` and at the end) and the losses read, against the JAX
+    loop's, both with their steps stubbed."""
     kw = dict(max_itr=11, n_aug_cameras=2, num_steps=8, upsample_steps=8,
               max_ray_batch=64, loss_fetch_every=every,
               eval_every=eval_every)
     scene = make_synthetic_scene(n_views=3, image_size=8, seed=0)
     want = _stub_jax_loop(monkeypatch, jloop.DistillConfig(
         ngp=JNGPConfig(**NGP_KW), **kw), scene, str(tmp_path / "jax"))
-    got = _stub_port_loop(monkeypatch, tloop.DistillConfig(
+    got = _recorded(_stub_port_loop, monkeypatch, tloop.DistillConfig(
         ngp=NGPConfig(**NGP_KW), **kw), scene, str(tmp_path / "port"))
-    assert [i for i, _ in got["sync_times"]] == \
-        [i for i, _ in want["sync_times"]]
+    assert _reads(got) == [i for i, _ in want["sync_times"]]
     assert got["losses"] == want["losses"] == [float(i) for i in
                                                range(1, 12)]
 
@@ -550,11 +569,11 @@ def test_batched_loop_reads_losses_every_loss_fetch_every():
             torch.Generator().manual_seed(1), use_diffusion=False,
             verbose=False)
 
-    each, every3 = run(1), run(3)
+    each, every3 = _recorded(run, 1), _recorded(run, 3)
     for a, b in zip(each, every3):
         assert a["losses"] == b["losses"] and len(a["losses"]) == 5
-    assert [i for i, _ in every3[0]["sync_times"]] == [2, 4]
-    assert [i for i, _ in each[0]["sync_times"]] == list(range(5))
+    assert _reads(every3[0]) == [2, 4]
+    assert _reads(each[0]) == list(range(5))
 
 
 # ---- the optimizer's staircase and the CLI switch ---------------------

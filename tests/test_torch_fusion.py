@@ -291,7 +291,8 @@ def test_demo_cpu_runs_the_diffusion_arm(tmp_path):
     assert np.isfinite(r["fusion_losses"]).all()
     # one fusion iteration (itr 3 > start_fusion 2): its PLMS steps + 1
     assert r["unet_evals"] >= 1
-    assert r["cache_seconds"] > 0
+    phase_a = [s for s in r["spans"] if s["name"] == "phase_a"]
+    assert len(phase_a) == 1 and phase_a[0]["t1"] > phase_a[0]["t0"]
     with open(tmp_path / "metrics" / "any_000_c2.txt") as fp:
         fp.readline()
         assert set(json.loads(fp.read())) == {"psnr", "ssim"}

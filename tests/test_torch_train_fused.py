@@ -18,6 +18,8 @@ Tolerances:
   ``test_torch_train_step.py``);
 * checkpoints: a resumed run bit-equal to the uninterrupted one.
 """
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -230,10 +232,11 @@ TINY = ["-c", "any", "-d", "synthetic", "--preset", "tiny",
         "--diffusion_batch_size", "2", "--vis_itr", "0", "--device", "cpu"]
 
 
-def test_cli_reads_losses_at_the_cadence(tmp_path, monkeypatch):
+def test_cli_reads_losses_at_the_cadence(tmp_path, monkeypatch, capsys):
     """Reads at step 0 (every 50), at the checkpoint after step 2 and at
-    the end; every step's loss returned; the step stays eager on the
-    CPU."""
+    the end (``loss_read`` spans, recorded under ``--spans``, after 1, 3
+    and 5 steps); every step's loss returned; the step stays eager on the
+    CPU.  ``--spans`` prints the operator's lines and writes the spans."""
     reads = []
     original = LossRing.read
 
@@ -245,11 +248,25 @@ def test_cli_reads_losses_at_the_cadence(tmp_path, monkeypatch):
     monkeypatch.setattr(LossRing, "read", read)
     hooked = []
     r = train_cli.main(TINY + ["--exp_dir", str(tmp_path), "--steps", "5",
-                               "--save_itr", "2"], step_hook=hooked.append)
+                               "--save_itr", "2", "--spans"],
+                       step_hook=hooked.append)
     assert hooked == [0, 1, 2, 3, 4]
     assert reads == [1, 2, 2]
-    assert [n for n, _ in r["sync_times"]] == [1, 3, 5]
-    assert r["loop_start"] <= r["sync_times"][0][1]
+    steps = [s for s in r["spans"] if s["name"] == "train/step"]
+    loss_reads = [s for s in r["spans"] if s["name"] == "loss_read"]
+    assert [s["unit"] for s in steps] == [0, 1, 2, 3, 4]
+    assert [sum(s["t1"] <= read["t0"] for s in steps)
+            for read in loss_reads] == [1, 3, 5]
+    assert steps[0]["t0"] <= loss_reads[0]["t1"]
+    # at steps 2 and 4 and at the end
+    assert sum(s["name"] == "checkpoint" for s in r["spans"]) == 3
+    out = capsys.readouterr().out
+    assert out.count("spans: ") == 3 and "x train/step; host " in out
+    assert "spans set-up: checkpoint " in out
+    with open(tmp_path / "spans_0.json") as f:
+        dumped = json.load(f)
+    assert [s["id"] for s in dumped["spans"]] == [s["id"]
+                                                  for s in r["spans"]]
     assert len(r["losses"]) == len(r["d_losses"]) == 5
     assert np.isfinite(r["losses"]).all() and r["fused"] is None
     np.testing.assert_allclose(
