@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke check of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels-only | --k1-only | --train-only]
-                          [--csrc DIR]
+    python3 chip_smoke.py [--kernels-only | --k1-only | --train-only |
+                           --k4-only] [--csrc DIR]
 
 f32 matmuls and convolutions run in full f32 throughout (``set_tf32(False)``
 first), except in the TF32 train profile of step 7.
@@ -13,7 +13,10 @@ first), except in the TF32 train profile of step 7.
    entry points) and prints ptxas's registers, shared memory and spills
    per kernel and their SASS opcode counts (HMMA, HGMMA, RED, ATOM, LDG);
    both of K2's instances (f32 and bf16) must issue HMMA, and the bf16
-   instance's wgmma body HGMMA, with no spills.
+   instance's wgmma body HGMMA, with no spills; each of K4's instances
+   must issue HMMA (their spills printed).  ``--k4-only``: then K4's
+   kernel phase (below) and the batch-1 UNet evaluation's profile of step
+   6 alone.
 3. Kernel phase: the fused grid-encode kernel (K1), forward and table
    gradient, against its plain PyTorch version on the same inputs, at
    ``NGPConfig()`` width (16 levels x C2, f32) on 2,097,152 uniform
@@ -51,7 +54,15 @@ first), except in the TF32 train profile of step 7.
    {8192, 16384, 32768} at N = 131,072 and 2,097,152 rows, bit-equal to
    its plain version and timed against one ``index_select``, with the
    bytes bound and the 32-byte sectors per second; one f32 case; indices
-   outside [0, R) must give rows of zeros.  Times are device times by
+   outside [0, R) must give rows of zeros.  The split-K convolution (K4)
+   against its plain version (``F.conv2d``, cuDNN with TF32 off) at the
+   batch-1 UNet's 4x4 3x3 1024->1024, 8x8 3x3 1536->1024, 32x32 3x3
+   256->256 and 15x15 stem: within 1e-5 of float64, two launches
+   bit-equal, its time and plan, its bound (weight, input and output
+   bytes against 2 M N K operations at the f32 rate), the plain version's
+   time and, as its yardstick, the same call with ``cudnn.benchmark`` on,
+   each call reading a cold copy of the weights, and one sum over that
+   copy (the card's own read rate).  Times are device times by
    ``torch.profiler``, with CUDA-event times beside them; each kernel's
    bound is computed from the bytes and operations of its inputs.  Then
    the NGP-only demo's input step at full width under
@@ -118,12 +129,13 @@ first), except in the TF32 train profile of step 7.
    launch three times per UNet evaluation (every
    attention layer of ``UNetConfig()`` has head dim 64, which K2 has an
    instance for; a head dim without one takes the plain version), in
-   bf16 for the bf16 sampler.  Then one batch-1 UNet evaluation, as the
+   bf16 for the bf16 sampler, and K4 133 times per f32 evaluation (each
+   of its convolutions) and never for the bf16 sampler.  Then one batch-1 UNet evaluation, as the
    sampler makes it, under ``torch.profiler`` in f32, TF32 and bf16:
    device and host ms, kernels per evaluation, by kernel class.  The
    diffusion demo over four scenes with ``--scene_batch 4`` as graphs
-   (K2 three times a UNet evaluation, each at batch 4), and its eager
-   twin for 25 iterations, printed as a pair.  LPIPS (seeded stand-in
+   (K2 three times and K4 133 times a UNet evaluation, each at batch 4),
+   and its eager twin for 25 iterations, printed as a pair.  LPIPS (seeded stand-in
    torchvision / lpips weights): the card against the CPU at 64 px, the
    device ms of the fusion step's perceptual term (forward and input
    backward at 256 px) beside its operations bound, and the diffusion
@@ -185,7 +197,7 @@ first), except in the TF32 train profile of step 7.
    step, with the launch counts reset before each row and read after it
    (K2 three times a UNet evaluation).  The Perceiver resampler at the
    JAX package's default width, card against CPU.
-9. Prints the kernels' JSON line (K2's bf16 instance, K1's
+9. Prints the kernels' JSON line (K2's bf16 instance, K4, K1's
    scene-batched launches and K1's mesh launches entries of their own;
    K3's launches are the micro's), then ``{"ok": true, "device": ...}``
    as the last line.
@@ -221,6 +233,9 @@ TIMING_ITERS = 10
 PROFILE_ITERS = 10
 PROFILE_STEPS = 5
 PROFILE_TRAIN_STEPS = 3
+# K4's launches in one evaluation of the full-width f32 UNet without a
+# gradient: each of its convolutions
+UNET_CONVS = 133
 # NVIDIA H100 SXM data sheet: memory rate (the peaks of f32 outside the
 # tensor cores and of bf16 on them are the flops tool's)
 HBM_BYTES_PER_S = 3.35e12
@@ -982,6 +997,112 @@ def attention_phase(dtype=torch.float32):
           f"no launch; the kernel refused it.  Checked launches by body: "
           f"{by_body}")
     return err_max, times, by_body
+
+
+# K4 at the batch-1 UNet's shapes: (x shape, weight shape, stride,
+# padding) of the 4x4 level's 3x3, the 8x8 up block's 3x3 over the skip,
+# the 32x32 level's 3x3 and the stem's 15x15
+K4_SHAPES = {
+    "4x4_3x3_1024to1024": ((1, 1024, 4, 4), (1024, 1024, 3, 3), 1, 1),
+    "8x8_3x3_1536to1024": ((1, 1536, 8, 8), (1024, 1536, 3, 3), 1, 1),
+    "32x32_3x3_256to256": ((1, 256, 32, 32), (256, 256, 3, 3), 1, 1),
+    "32x32_stem_15x15_260to64": ((1, 260, 32, 32), (64, 260, 15, 15), 1, 7),
+}
+K4_KERNEL = "conv2d_splitk_kernel"
+# f32: K4 within 1e-5 of its plain version in float64, and of the plain
+# version in f32 within 1e-5 beyond that one's own distance from float64
+# (cuDNN's f32 sums over long K sit up to 4e-5 from it;
+# tests/test_torch_conv2d_splitk.py)
+K4_TOL = 1e-5
+# each timed call reads its own copy of the weights, from a ring of at
+# least this many bytes (3x the L2), as the UNet's evaluation finds its
+# weights cold; the input stays as it is (the previous layer's output,
+# in L2)
+K4_WEIGHT_RING_BYTES = 160 * 2 ** 20
+
+
+def conv2d_phase():
+    """K4 against its plain version (``F.conv2d``, cuDNN with TF32 off and
+    ``cudnn.benchmark`` off, as the port ran the UNet before K4) at
+    :data:`K4_SHAPES`: the largest error against the plain version and
+    against float64; K4's device time, its plan, its bound (weight, input
+    and output bytes at the memory rate against 2 M N K operations at the
+    f32 rate), the plain version's time and, as ``library_ms``, the same
+    call with ``cudnn.benchmark`` on (set and restored here only; the
+    port never sets it).  Each timed call reads a cold copy of the
+    weights.  Two launches must be bit-equal."""
+    from sparsefusion_tpu_torch.kernels import conv2d as k4
+    from sparsefusion_tpu_torch.ops.conv2d import conv2d_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    err_max, times = 0.0, {}
+    for name, (xs, ws, stride, padding) in K4_SHAPES.items():
+        k = ws[1] * ws[2] * ws[3]
+        x = torch.randn(*xs, device="cuda", generator=gen)
+        w = torch.randn(*ws, device="cuda", generator=gen) / math.sqrt(k)
+        bias = torch.randn(ws[0], device="cuda", generator=gen)
+        k4.reset_launches()
+        out_k = k4.conv2d_splitk_cuda(x, w, bias, stride, padding)
+        again = k4.conv2d_splitk_cuda(x, w, bias, stride, padding)
+        out_p = conv2d_plain(x, w, bias, stride, padding)
+        want = conv2d_plain(x.double(), w.double(), bias.double(), stride,
+                            padding)
+        torch.cuda.synchronize()
+        assert k4.conv2d_splitk_cuda.launches == 2
+        assert torch.equal(out_k, again), f"K4 launches differ at {name}"
+        err = (out_k - out_p).abs().max().item()
+        m = out_k.shape[0] * out_k.shape[2] * out_k.shape[3]
+        p = k4.plan(m, ws[0], k)
+        ring = [w] + [w.clone() for _ in range(
+            max(1, K4_WEIGHT_RING_BYTES // _nbytes(w)))]
+        turn = [0]
+
+        def cold(fn):
+            def call():
+                turn[0] = (turn[0] + 1) % len(ring)
+                return fn(x, ring[turn[0]], bias, stride, padding)
+            return call
+
+        bound_ms, bound_by = _bound(_nbytes(x, w, bias, out_k), 2 * m * ws[0] * k)
+        before = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = False
+        plain_ms = sum(device_ms(cold(conv2d_plain), PROFILE_ITERS).values())
+        torch.backends.cudnn.benchmark = True
+        try:
+            library_ms = sum(device_ms(cold(conv2d_plain),
+                                       PROFILE_ITERS).values())
+            library_err = (conv2d_plain(x, w, bias, stride, padding)
+                           - out_p).abs().max().item()
+        finally:
+            torch.backends.cudnn.benchmark = before
+        times[name] = {
+            "m": m, "n": ws[0], "k": k, "tile_rows": p.tile_rows,
+            "splits": p.splits, "ctas": p.ctas,
+            "ms": named_ms(device_ms(cold(k4.conv2d_splitk_cuda),
+                                     PROFILE_ITERS), K4_KERNEL),
+            "event_ms": event_ms(cold(k4.conv2d_splitk_cuda), TIMING_ITERS),
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err,
+            "max_abs_err_f64": (out_k.double() - want).abs().max().item(),
+            "plain_max_abs_err_f64": (out_p.double() - want).abs().max()
+            .item(),
+            "library_max_abs_err": library_err}
+        t = times[name]
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        # the card's own read rate: one sum over a cold copy of the weights
+        t["weight_read_ms"] = sum(device_ms(
+            cold(lambda x_, w_, *_: w_.sum()), PROFILE_ITERS).values())
+        print(f"kernel {K4_KERNEL} {name}: {json.dumps(t)}")
+        assert torch.isfinite(out_k).all()
+        err_max = max(err_max, err)
+        del ring
+    torch.cuda.empty_cache()
+    bad = {name: t for name, t in times.items()
+           if not (t["max_abs_err_f64"] <= K4_TOL and t["max_abs_err"]
+                   <= K4_TOL + t["plain_max_abs_err_f64"])}
+    assert not bad, f"K4 disagrees with its plain version: {bad}"
+    return err_max, times
 
 
 GATHER_POINTS = (131072, 2097152)   # the JAX micro's default N, and 16x
@@ -1973,6 +2094,10 @@ def diffusion_main_path(variant="f32", max_itr=40, lpips_spec=None,
     assert launches["imagen_attention"] == 3 * r["unet_evals"], launches
     assert launches["imagen_attention_bf16"] == (
         launches["imagen_attention"] if sampler_bf16 else 0), launches
+    # K4 for each of the f32 UNet's no-grad convolutions; the bf16
+    # sampler's stay on cuDNN
+    assert launches["conv2d_splitk"] == (
+        0 if sampler_bf16 else UNET_CONVS * r["unet_evals"]), launches
     # the card runs fused by default; --no_fused is the eager loop
     assert (r["fused"] is not None) == fused, r["fused"]
     if fused:
@@ -2500,6 +2625,7 @@ def batched_main_path(kind, single, fused=True):
         assert k1[f"{name}_scenes"] == SCENES * k1[name] > 0, k1
     if kind == "diffusion":
         assert launches["imagen_attention"] == 3 * r["unet_evals"] > 0
+        assert launches["conv2d_splitk"] == UNET_CONVS * r["unet_evals"]
         assert stats["unet_batches"] == [SCENES], stats["unet_batches"]
         assert len(x["fusion_losses"]) == max_itr
     else:
@@ -2668,11 +2794,12 @@ def small_train_step_check(compute_dtype="float32"):
 
 
 def _reset_counts():
-    from sparsefusion_tpu_torch.kernels import attention, grid_encode
+    from sparsefusion_tpu_torch.kernels import attention, conv2d, grid_encode
 
     torch.cuda.synchronize()
     grid_encode.reset_launches()
     attention.reset_launches()
+    conv2d.reset_launches()
 
 
 def _read_counts():
@@ -2681,8 +2808,9 @@ def _read_counts():
     ``imagen_attention_bf16_wgmma`` the bf16 one's wgmma body;
     ``grid_encode_fwd_bf16`` K1 forward's launches on a bf16 table;
     ``grid_encode_{fwd,bwd}_scenes`` the scenes K1's launches encoded (a
-    scene-batched launch counts once in the launches and S times here)."""
-    from sparsefusion_tpu_torch.kernels import attention, grid_encode
+    scene-batched launch counts once in the launches and S times here);
+    ``conv2d_splitk`` K4's."""
+    from sparsefusion_tpu_torch.kernels import attention, conv2d, grid_encode
 
     torch.cuda.synchronize()
     return {"grid_encode_fwd": grid_encode.grid_encode_cuda.launches,
@@ -2696,7 +2824,8 @@ def _read_counts():
             "imagen_attention_bf16":
                 attention.imagen_attention_cuda.launches_bf16,
             "imagen_attention_bf16_wgmma":
-                attention.imagen_attention_cuda.launches_bf16_wgmma}
+                attention.imagen_attention_cuda.launches_bf16_wgmma,
+            "conv2d_splitk": conv2d.conv2d_splitk_cuda.launches}
 
 
 # the captured step against the eager one on the card: the first step's
@@ -3786,6 +3915,9 @@ def main(argv=None) -> int:
     parser.add_argument("--train-only", action="store_true",
                         help="after the build, run K1's summation-bound "
                              "check and the training phases (step 7) only")
+    parser.add_argument("--k4-only", action="store_true",
+                        help="after the build, run K4's kernel phase and "
+                             "the batch-1 UNet evaluation's profile only")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3820,7 +3952,24 @@ def main(argv=None) -> int:
         assert sass[f]["HGMMA"] > 0, f"{f} issues no HGMMA"
         assert spills.get(f) == 0, f"{f} spills {spills.get(f)} bytes"
 
+    # K4: an instance a tile height, each issuing tensor-core products
+    # (HMMA); their spills printed
+    from sparsefusion_tpu_torch.kernels.conv2d import TILE_ROWS
+    k4_fns = [f for f in sass if K4_KERNEL in f]
+    assert len(k4_fns) == len(TILE_ROWS), k4_fns
+    for f in k4_fns:
+        assert sass[f]["HMMA"] > 0, f"{f} issues no HMMA"
+    print("K4 spill bytes: " + json.dumps({f: spills.get(f)
+                                           for f in k4_fns}))
+
     _mark("build")
+    if args.k4_only:
+        k4_err, k4_times = conv2d_phase()
+        _mark("K4 kernel phase")
+        unet = unet_eval_profile()
+        print(json.dumps({"conv2d_splitk": k4_times, "max_abs_err": k4_err,
+                          "unet_eval": unet}))
+        return 0
     if args.train_only:
         k1_summation_bound_check()
         train_phase()
@@ -3837,13 +3986,15 @@ def main(argv=None) -> int:
     attn_err, attn_times, _ = attention_phase(torch.float32)
     bf16_err, bf16_times, bf16_phase_bodies = attention_phase(torch.bfloat16)
     _mark("K2 kernel phase")
+    k4_err, k4_times = conv2d_phase()
+    _mark("K4 kernel phase")
     k3_launches, k3_micro, k3_f32, k3_err = row_gather_phase()
     _mark("K3 kernel phase")
     step_stats = input_step_profile()["reference"]
     step_stats_scenes = input_step_profile(n_scenes=SCENES)
     _mark("input step profile")
     if args.kernels_only:
-        print(json.dumps({"kernel_times": times,
+        print(json.dumps({"kernel_times": times, "conv2d_splitk": k4_times,
                           "scene_kernel_times": scene_times,
                           "attention": attn_times,
                           "attention_bf16": bf16_times,
@@ -4010,6 +4161,17 @@ def main(argv=None) -> int:
         _k3_entry(k3_launches, k3_micro, k3_f32, k3_err,
                   tr["fwd_warp_sectors_per_s"]),
     ]
+    k4_paths = by_path("conv2d_splitk")
+    k4_head = k4_times["4x4_3x3_1024to1024"]
+    kernels.append({
+        "name": "conv2d_splitk", "route": "cuda",
+        "source": "sparsefusion_tpu_torch/csrc/conv2d_splitk.cu",
+        "replaces": None, "launches": sum(k4_paths.values()),
+        "launches_by_path": k4_paths, "max_abs_err": k4_err,
+        **{key: k4_head[key] for key in (
+            "ms", "event_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")},
+        "shapes": k4_times})
     st = scene_times["ngp_16xC2_f32"]
     for direction, replaces in (("fwd", "grid_gather.py:79"),
                                 ("bwd", "grid_gather.py:133")):

@@ -15,9 +15,9 @@ weight read to it, the gamma LayerNorms compute in f32 and return it
 compute in f32 and return f32, as the JAX modules with
 ``dtype=jnp.float32``.  :func:`set_compute_dtype` sets it on a module
 tree; f32 is the default, and there every cast is a no-op.
-:class:`Attention` calls kernel K2 (``kernels/attention.py``); the
-multi-head :class:`CrossAttention` is a plain einsum, as in the JAX
-package.
+:class:`Attention` calls kernel K2 (``kernels/attention.py``),
+:class:`Conv2d` kernel K4 (``kernels/conv2d.py``); the multi-head
+:class:`CrossAttention` is a plain einsum, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sparsefusion_tpu_torch.kernels.attention import imagen_attention
+from sparsefusion_tpu_torch.kernels.conv2d import conv2d
 
 
 class _Compute:
@@ -58,12 +59,15 @@ class Linear(_Compute, nn.Linear):
 
 class Conv2d(_Compute, nn.Conv2d):
     """``nn.Conv2d`` with its input, weight and bias cast to the compute
-    dtype (flax ``nn.Conv(dtype=...)``)."""
+    dtype (flax ``nn.Conv(dtype=...)``), zero-padded; kernel K4 where
+    ``kernels/conv2d.py::takes_kernel`` holds (f32 on a card, no
+    gradient)."""
 
     def forward(self, x):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        return conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                      self.padding, self.dilation, self.groups)
 
 
 class LayerNormF32(nn.LayerNorm):

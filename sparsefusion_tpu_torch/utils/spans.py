@@ -566,7 +566,8 @@ def report_line(r: Recorder, units: List[Span], since: int) -> str:
     """One line: per unit, the host's own ms (the unit's and the spans
     before it, less its graph launches, which wait for room in the
     device's queue, and its loss reads), those two, the device ms, each
-    layer's device ms, and the UNet's evaluations and their batch."""
+    layer's device ms, and the UNet's evaluations, their batch and K4's
+    launches in each."""
     ids = {u.unit for u in units}
     n = len(units)
     mine = [s for s in r.spans if s.id >= since and s.unit in ids]
@@ -590,11 +591,12 @@ def report_line(r: Recorder, units: List[Span], since: int) -> str:
                      "ms/unit")
         parts += [f"{k} {v / n:.2f}" for k, v in
                   sorted(dev.items(), key=lambda kv: -kv[1])]
-    unets = [s.counts.get("unet_batch", 0) for s in mine
-             if s.name == "unet" and s.counts]
+    unets = [s.counts for s in mine if s.name == "unet" and s.counts]
     if unets:
-        parts.append(f"unet {len(unets) / n:.2f}/unit at batch "
-                     f"{sum(unets) / len(unets):.3g}")
+        batch = sum(c.get("unet_batch", 0) for c in unets) / len(unets)
+        k4 = sum(c.get("k4_launches", 0) for c in unets) / len(unets)
+        parts.append(f"unet {len(unets) / n:.2f}/unit at batch {batch:.3g}"
+                     + (f", {k4:.4g} K4 launches each" if k4 else ""))
     return "; ".join(parts)
 
 
