@@ -54,10 +54,12 @@ def reference_models(config: dict, seed: int, device,
 
 def readings(out: dict, program_end=None) -> dict:
     """Norms of a followed run: its losses, each leaf's first moment and
-    change; with ``program_end``, the program's change from the same
-    start."""
+    change, and the sampler's outputs (in f64 on the host); with
+    ``program_end``, the program's change from the same start."""
     start = out["start"]
     res = {"losses": out["losses"],
+           "targets": [t.to("cpu", torch.float64)
+                       for t in out.get("targets", [])],
            "moment": {n: float(t.double().norm())
                       for n, t in out["moment"].items()},
            "change": {n: float((out["end"][n] - start[n]).double().norm())

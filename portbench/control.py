@@ -1,16 +1,20 @@
 """The check's control: the reference put in the program's place and
 computed one precision below the configuration's (f32 with TF32 off ->
-TF32 on), held to the same numbers as a run.
+TF32 on; a bf16 sampler's UNet -> fp8), held to the same numbers as a
+run.
 
     python3 -m portbench.control --workload <name> --seeds 1 2 3
-        [--scopes all diffusion]
+        [--scopes all diffusion fp8_unet]
 
 For each seed, the cell's inputs are made as a run makes them, the
 reference follows the program's first steps in f32 and, as the
 control, with TF32 on in everything ("all") or in the UNet and VAE alone
-("diffusion"); the numbers the check compares are printed, one JSON line
-a seed and scope, control against f32.  The benchmark's own runs do not
-run it; ``PERF.md`` gives the readings each limit was set from.  With
+("diffusion"), or, for a distillation cell, with the UNet's
+convolutions and linears on fp8-rounded weights and inputs
+("fp8_unet", ``portbench/fp8.py``); the numbers the check compares are
+printed, one JSON line a seed and scope, control against f32.  The
+benchmark's own runs do not run it; ``PERF.md`` gives the readings each
+limit was set from.  With
 ``--faults <name> ...``, a run of the cell follows for each fault of
 ``portbench/faults.py`` named, planted in the program (``--seconds`` of
 window), and its numbers are printed too.
@@ -24,8 +28,9 @@ import sys
 
 def control_readings(workload: str, seed: int, device="cuda",
                      root=None, bench_dir=None, scopes=("all",)) -> dict:
-    """{scope: {number: value}} of the TF32 reference against the f32
-    one, TF32 on in ``scope`` ("all", "diffusion")."""
+    """{scope: {number: value}} of the control reference against the f32
+    one: TF32 on in ``scope`` ("all", "diffusion"), or the UNet on fp8
+    ("fp8_unet", distillation cells)."""
     import torch
 
     from portbench import scenes, spec
@@ -37,6 +42,9 @@ def control_readings(workload: str, seed: int, device="cuda",
     config, traffic = cell.config, cell.traffic
     device = torch.device(device)
     n_views, size = config["n_views"], config["image_size"]
+    if "fp8_unet" in scopes and config["kind"] != "distill":
+        raise ValueError("the fp8 control rounds a distillation cell's "
+                         "sampler UNet")
     if config["kind"] == "distill":
         from portbench.drivers.distill import follow_reference
         from sparsefusion_tpu_torch.distill.loop import DistillConfig
@@ -82,8 +90,8 @@ def main(argv=None) -> int:
     p.add_argument("--faults", nargs="*", default=[],
                    help="faults of portbench/faults.py to plant")
     p.add_argument("--scopes", nargs="+", default=["all"],
-                   choices=["all", "diffusion"],
-                   help="where the control turns TF32 on")
+                   choices=["all", "diffusion", "fp8_unet"],
+                   help="where the control turns TF32 on, or fp8_unet")
     p.add_argument("--seconds", type=float, default=2.0)
     args = p.parse_args(argv)
     for seed in args.seeds:
@@ -91,7 +99,8 @@ def main(argv=None) -> int:
                                     scopes=args.scopes)
         for scope, r in readings.items():
             print(json.dumps({"workload": args.workload, "seed": seed,
-                              "control": f"tf32_{scope}", "readings": r}),
+                              "control": scope if scope == "fp8_unet"
+                              else f"tf32_{scope}", "readings": r}),
                   flush=True)
     if args.faults:
         from portbench import faults

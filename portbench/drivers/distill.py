@@ -15,7 +15,10 @@ of its own.  Every iteration enqueued in between counts.
 
 The loop's own state (its field, optimizer and device loss log) is read
 from the frame that calls ``iteration_hook``, the loop's measurement
-hook; the noise levels, cached cameras and input views of each
+hook; where the traffic's limits name ``target_gap``, so is the
+sampler's output of each followed fusion iteration (the final PLMS
+latent in the fused programs' buffer, clipped as the fusion step clips
+it).  The noise levels, cached cameras and input views of each
 iteration are the benchmark's own copy of the loop's ``RandomState(17)``
 draws.
 """
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from portbench import common, flops, scenes, spec
+from portbench.fp8 import fp8_unet
 from portbench.trace import TraceWindow
 
 
@@ -80,6 +84,18 @@ def iteration_work(config: dict, mt: float, fusion: bool) -> dict:
     return {"ops": ops, "k1_s": 2 * r_k1}
 
 
+def sampler_output(programs, ddpm: dict) -> torch.Tensor:
+    """The fused programs' final PLMS latent of the iteration just run,
+    clipped as the fusion step clips it, in f64 on the host."""
+    if programs is None:
+        raise RuntimeError("the sampler's output is read from the fused "
+                           "programs: run with DistillConfig.fused_steps")
+    x = programs.buffers["x"]
+    if ddpm["clip_output"]:
+        x = x.clamp(-ddpm["clip_value"], ddpm["clip_value"])
+    return x.detach().to("cpu", torch.float64, copy=True)
+
+
 def run(cell, seed: int, seconds: float, trace: bool, device, t0: float):
     from sparsefusion_tpu_torch.distill.loop import (
         DistillConfig,
@@ -121,13 +137,17 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float):
     if trace:
         # the operation counts run on the host: count before the window
         iteration_work(config, 0.99, True)
-    st = {"losses": None, "moment": None, "end": None}
+    st = {"losses": None, "moment": None, "end": None, "targets": []}
+    targets = "target_gap" in traffic["limits"]
 
     def hook(itr: int) -> None:
         loc = sys._getframe(1).f_locals
         if itr == 0:
             common.sync(device)
             marks["first_iteration"] = time.perf_counter()
+        if targets and cfg.start_fusion_step < itr < follow:
+            st["targets"].append(sampler_output(loc["programs"],
+                                                config["ddpm"]))
         if itr == moment_at:
             adam = loc["optimizer"].adam
             st["moment"] = {n: float(adam.state[p]["exp_avg"].double().norm())
@@ -172,7 +192,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float):
                "setup_s": st["t_w0"] - t0, "peak_gib": peak / 2 ** 30}
     marks["window"] = st["t_w0"]
     program = {"losses": st["losses"], "moment": st["moment"],
-               "attempted": n, "failed": failed}
+               "targets": st["targets"], "attempted": n, "failed": failed}
     end = st["end"]
     trace_out = tw.trace
     del models, st, generator, tw
@@ -190,7 +210,9 @@ def follow_reference(config, cfg, scene, input_idx, seed, follow,
                      tf32: str = "") -> dict:
     """The reference over the loop's first ``follow`` iterations, in f32
     (``tf32``: the control, with TF32 on in everything, "all", or in the
-    UNet and VAE alone, "diffusion"); the first moment after iteration
+    UNet and VAE alone, "diffusion"; or "fp8_unet", the UNet's
+    convolutions and linears on fp8-rounded weights and inputs,
+    ``portbench/fp8.py``); the first moment after iteration
     ``moment_at``; with ``program_end``, also the program's change of
     each leaf from the reference's start."""
     from portbench.reference import sparsefusion as ref
@@ -199,6 +221,8 @@ def follow_reference(config, cfg, scene, input_idx, seed, follow,
     try:
         models = common.reference_models(config, seed, device,
                                          tf32 == "diffusion")
+        if tf32 == "fp8_unet":
+            fp8_unet(models.unet)
         generator = torch.Generator(device=device).manual_seed(
             spec.sub_seed(seed, spec.SEED_LOOP))
         d = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)

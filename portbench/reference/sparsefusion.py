@@ -141,6 +141,7 @@ class DistillSteps:
                  models: Optional[Models]):
         self.field, self.cfg, self.models = field, cfg, models
         self.image_size = image_size
+        self.targets = []   # each fusion step's sampler output (latents)
         self.render_hw = image_size // cfg["hw_scale"]
         self.vcfg = renderer_config(cfg)
         mlp = [p for n, p in field.named_parameters() if n != "grid"]
@@ -196,6 +197,7 @@ class DistillSteps:
             models.ddpm, models.denoise_fn, latents, max_thres,
             cond_images=features[None], cond_scale=cfg["cond_scale"],
             plms_steps=cfg["plms_steps"], generator=generator)
+        self.targets.append(pred_x0.detach().clone())
         return models.vae_decode(pred_x0)[0], (1.0 - alpha_cumprod)[0]
 
     def fusion_losses(self, cam, features, max_thres, generator):
@@ -263,8 +265,8 @@ def follow_distillation(models: Optional[Models], scene, input_idx,
     then each iteration's host draws from ``RandomState(17)``, an input
     step, and a bootstrap step or, after ``fusion_from``, a fusion step).
     Returns the losses of every step, each leaf's first moment after
-    iteration ``moment_at``, and the field's parameters before and
-    after."""
+    iteration ``moment_at``, the field's parameters before and after,
+    and each fusion step's sampler output."""
     image_size = scene.images.shape[1]
     scene_cameras = scene.cameras(device)
     scene_rgb = torch.as_tensor(scene.images, device=device)
@@ -299,6 +301,7 @@ def follow_distillation(models: Optional[Models], scene, input_idx,
         if itr == moment_at:
             moment = adam_moments(steps.adam, dict(field.named_parameters()))
     return {"losses": losses, "moment": moment, "start": start,
+            "targets": steps.targets,
             "end": {n: p.detach().clone()
                     for n, p in field.named_parameters()}}
 

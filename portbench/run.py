@@ -80,7 +80,10 @@ def compare(prog: dict, ref: dict, limits: dict) -> dict:
     reference's norm of that leaf or of the median leaf, whichever is
     larger.  Leaves whose reference moment is under a thousandth of the
     median leaf's move by round-off alone and are left out of the
-    change."""
+    change.  Where ``limits`` name ``target_gap``: the relative distance
+    (L2) between the program's and the reference's sampler outputs of the
+    followed fusion steps, taken together (a low-noise step's small
+    output weighs as little as it measures)."""
     from statistics import median
 
     loss = worst(abs(p - r) / max(abs(r), 1e-30)
@@ -97,6 +100,16 @@ def compare(prog: dict, ref: dict, limits: dict) -> dict:
     change = worst(abs(prog["change"].get(n, 0.0) - c_ref[n])
                    / max(c_ref[n], med_c) for n in moved)
     values = {"loss_gap": loss, "grad_gap": grad, "change_gap": change}
+    if "target_gap" in limits:
+        p_t, r_t = prog.get("targets", []), ref["targets"]
+        values["target_gap"] = math.inf
+        if r_t and len(p_t) == len(r_t):
+            import torch
+
+            p_all = torch.cat([t.flatten() for t in p_t])
+            r_all = torch.cat([t.flatten() for t in r_t])
+            values["target_gap"] = worst(
+                [float((p_all - r_all).norm() / r_all.norm())])
     out = {k: {"value": v, "limit": limits[k]} for k, v in values.items()}
     out["change_gap"]["leaves"] = len(moved)
     out["change_gap"]["left_out"] = sorted(set(m_ref) - set(moved))

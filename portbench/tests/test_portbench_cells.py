@@ -11,7 +11,8 @@ from portbench.run import run_cell
 from portbench.tests.tiny import run_tiny, tiny_checkout
 from portbench.trace import Trace
 
-CELLS = ("distill-fusion", "train-f32", "distill-bootstrap")
+CELLS = ("distill-fusion", "train-f32", "distill-bootstrap",
+         "distill-fusion-bf16")
 
 
 @pytest.fixture(scope="module")
@@ -42,9 +43,10 @@ def _follow(tiny, cell, seed):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_reference_against_itself(tiny, cell):
+    limits = spec.find_cell(cell, tiny, tiny / "portbench").traffic["limits"]
     for seed in (3, 2 ** 32 + 5):
-        assert _follow(tiny, cell, seed) == {"all": {
-            "loss_gap": 0.0, "grad_gap": 0.0, "change_gap": 0.0}}
+        assert _follow(tiny, cell, seed) == {"all": dict.fromkeys(limits,
+                                                                  0.0)}
 
 
 def test_window_is_a_count_of_units():

@@ -8,7 +8,8 @@ from portbench import faults
 from portbench.run import run_cell
 from portbench.tests.tiny import tiny_checkout
 
-CELLS = ("distill-fusion", "train-f32", "distill-bootstrap")
+CELLS = ("distill-fusion", "train-f32", "distill-bootstrap",
+         "distill-fusion-bf16")
 
 
 @pytest.fixture(scope="module")
