@@ -32,7 +32,13 @@ a scene batch's; ``--no_fused`` runs them eagerly
 (``DistillConfig.fused_steps=False``), as the JAX demo's flag does.
 ``-g`` / ``-p`` are accepted and change nothing.  With ``--device cuda``
 and no CUDA device the demo raises; it never continues on the CPU.
-``--spans`` records every iteration in the span recorder
+``--prior zero123`` puts Zero-1-to-3's UNet in the fusion step in place
+of the VLDM (``models.py::Zero123Models``: its CLIP tower and
+``cc_projection`` condition each cached camera on its nearest input view
+and their relative pose, guidance at ``cond_scale`` 3.0, ldm's
+1000-step schedule), from random weights drawn from seed 0 (no Zero123
+checkpoint loads; ``-e`` / ``-a`` still load the EFT and VAE); it runs
+one scene at a time.  ``--spans`` records every iteration in the span recorder
 (``utils/spans.py``), prints, at each loss read, a line of the set-up
 spans and one of the iterations' host ms and each layer's device ms an
 iteration, and writes every span to ``<exp_dir>/spans_<process>.json``.
@@ -93,6 +99,10 @@ def parse_args(argv=None):
                         "the sequential loop and in scene batches")
     p.add_argument("--scene_batch", type=int, default=1,
                    help="scenes distilled in lockstep on one device")
+    p.add_argument("--prior", type=str, default="vldm",
+                   choices=["vldm", "zero123"],
+                   help="the fusion step's diffusion prior: SparseFusion's "
+                        "VLDM, or Zero-1-to-3 (guidance 3.0)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device the demo runs on (cuda or cpu)")
     p.add_argument("--spans", action="store_true",
@@ -163,24 +173,34 @@ def build_trio(args, device: torch.device):
     given checkpoints."""
     from sparsefusion_tpu_torch.models import (
         build_models,
+        build_zero123_models,
         narrow_model_configs,
+        narrow_zero123_configs,
     )
     from sparsefusion_tpu_torch.train.checkpoints import (
         import_resnet18_trunk,
         maybe_import_reference_weights,
     )
 
+    zero123 = args.prior == "zero123"
     configs = {}
     if device.type == "cpu":
         if any(p and os.path.exists(p) for p in
                (args.eft_ckpt, args.vae_ckpt, args.vldm_ckpt)):
             raise ValueError("reference checkpoints are full width; the "
                              "CPU demo runs the narrow test UNet and VAE")
-        configs = narrow_model_configs()
+        configs = narrow_zero123_configs() if zero123 \
+            else narrow_model_configs()
         print("device cpu: narrow test UNet and VAE")
     generator = torch.Generator(device=device).manual_seed(0)
-    models = build_models(generator, device, timesteps=args.timesteps,
-                          **configs)
+    if zero123:
+        if args.vldm_ckpt is not None:
+            raise ValueError("-l loads a VLDM checkpoint; --prior zero123 "
+                             "runs Zero123's UNet")
+        models = build_zero123_models(generator, device, **configs)
+    else:
+        models = build_models(generator, device, timesteps=args.timesteps,
+                              **configs)
     models = maybe_import_reference_weights(
         models, args.eft_ckpt, args.vae_ckpt, args.vldm_ckpt)
     if args.eft_ckpt is None:
@@ -235,6 +255,11 @@ def main(argv=None):
     preset = "reference" if args.preset == "auto" else args.preset
     make_cfg = tpu_distill_config if preset == "tpu" else DistillConfig
     cfg = make_cfg(max_itr=args.max_itr, start_fusion_step=args.start_fusion)
+    if args.prior == "zero123":
+        if args.scene_batch > 1:
+            raise ValueError("--prior zero123 runs one scene at a time")
+        # zero123's demo default
+        cfg = dataclasses.replace(cfg, cond_scale=3.0)
     if args.no_fused:
         cfg = dataclasses.replace(cfg, fused_steps=False)
 

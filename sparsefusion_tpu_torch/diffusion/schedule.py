@@ -4,10 +4,16 @@ Counterpart of ``sparsefusion_tpu/diffusion/schedule.py``: time t in
 [0, 1] maps to a log-SNR; alpha = sqrt(sigmoid(log_snr)), sigma =
 sqrt(sigmoid(-log_snr)).  Everything runs in f32 on the device of its
 inputs.
+
+``ldm_linear`` is latent diffusion's discrete schedule (Zero-1-to-3's):
+``alphas_cumprod`` of betas ``linspace(sqrt(0.00085), sqrt(0.012), T)**2``,
+read at the continuous index t (T - 1) and interpolated linearly, and
+the UNet's time signal is that index (ldm's timestep), not the log-SNR.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -27,6 +33,28 @@ def alpha_cosine_log_snr(t: torch.Tensor, s: float = 0.008) -> torch.Tensor:
     """log SNR of the cosine schedule (eps 1e-5, as the reference)."""
     return -_log(
         torch.cos((t + s) / (1 + s) * math.pi * 0.5) ** -2 - 1.0, eps=1e-5)
+
+
+LDM_LINEAR_START, LDM_LINEAR_END = 0.00085, 0.012
+
+
+@functools.lru_cache(maxsize=None)
+def ldm_alphas_cumprod(steps: int, device: torch.device) -> torch.Tensor:
+    """ldm's ``alphas_cumprod`` (steps,), made in float64, kept in f32."""
+    betas = torch.linspace(LDM_LINEAR_START ** 0.5, LDM_LINEAR_END ** 0.5,
+                           steps, dtype=torch.float64) ** 2
+    return torch.cumprod(1.0 - betas, 0).to(device, torch.float32)
+
+
+def ldm_linear_log_snr(t: torch.Tensor, steps: int) -> torch.Tensor:
+    """log SNR of ldm's schedule at the continuous index t (steps - 1)."""
+    table = ldm_alphas_cumprod(steps, t.device)
+    idx = t.float() * (steps - 1)
+    lo = torch.clamp(torch.floor(idx), 0, steps - 2)
+    frac = idx - lo
+    lo = lo.long()
+    ac = table[lo] * (1.0 - frac) + table[lo + 1] * frac
+    return torch.log(ac) - torch.log1p(-ac)
 
 
 def log_snr_to_alpha_sigma(log_snr: torch.Tensor):
@@ -54,11 +82,18 @@ class GaussianDiffusion:
             return beta_linear_log_snr(t)
         if self.noise_schedule == "cosine":
             return alpha_cosine_log_snr(t)
+        if self.noise_schedule == "ldm_linear":
+            return ldm_linear_log_snr(t, self.num_timesteps)
         raise ValueError(f"invalid noise schedule {self.noise_schedule}")
 
     def get_condition(self, times: Optional[torch.Tensor]):
-        """The UNet's time signal: the log-SNR itself."""
-        return None if times is None else self.log_snr(times)
+        """The UNet's time signal: the log-SNR itself; ldm's timestep
+        t (T - 1) for ``ldm_linear``."""
+        if times is None:
+            return None
+        if self.noise_schedule == "ldm_linear":
+            return times * (self.num_timesteps - 1)
+        return self.log_snr(times)
 
     def sample_random_times(self, batch: int, generator: torch.Generator,
                             max_thres: float = 0.999) -> torch.Tensor:

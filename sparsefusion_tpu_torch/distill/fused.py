@@ -85,6 +85,7 @@ from sparsefusion_tpu_torch.diffusion.plms import (
     plms_step0,
     plms_tail_step,
 )
+from sparsefusion_tpu_torch.distill.loop import cond_map
 from sparsefusion_tpu_torch.utils import spans
 from sparsefusion_tpu_torch.utils.graphs import (
     GraphRunner,
@@ -190,10 +191,14 @@ class FusedIterations:
 
     def _eps(self):
         cfg, models = self.cfg, self.models
+        cond = self.buffers.get("cond")
+        if cond is None:   # a tuple of conditioning tensors
+            cond = tuple(self.buffers[("cond", k)]
+                         for k in range(len(self.features)))
         return eps_fn(models.ddpm,
                       functools.partial(models.denoise_fn,
                                         bf16=cfg.sampler_bf16),
-                      self.buffers["cond"], cfg.cond_scale)
+                      cond, cfg.cond_scale)
 
     def fusion_front(self, vc, draws=None, fusion_draws=None) -> None:
         """The input step; the fusion step's render of the cached camera
@@ -224,9 +229,11 @@ class FusedIterations:
                 self._randn(latents)
             x0, _, log_snr = plms_prologue(models.ddpm, latents, self.mt,
                                            full_start, noise)
-            cond = self._pick(self.features, self.ci)
+            cond = cond_map(lambda f: self._pick(f, self.ci), self.features)
+            conds = (tuple((("cond", k), c) for k, c in enumerate(cond))
+                     if isinstance(cond, tuple) else (("cond", cond),))
             weight = steps._unbatch(1.0 - torch.sigmoid(log_snr))
-            for name, value in (("x", x0), ("times", times), ("cond", cond),
+            for name, value in (("x", x0), ("times", times), *conds,
                                 ("weight", weight)):
                 self._buffer(name, value).copy_(value)
             self._buffer("idx", self.bi[:1]).fill_(1)

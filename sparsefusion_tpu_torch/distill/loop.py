@@ -463,9 +463,10 @@ class SceneSteps:
     def fusion_target(self, img: torch.Tensor, features: torch.Tensor,
                       max_thres: float, generator=None, plms_noise=None):
         """The diffusion target of a render (H, W, 3): VAE encode,
-        partial-noise PLMS conditioned on ``features`` (256, h, w), VAE
-        decode.  Returns (target image (H, W, 3), fusion weight =
-        1 - alpha_cumprod at max_thres).  S scenes' renders and features
+        partial-noise PLMS conditioned on ``features`` (256, h, w), or a
+        tuple of the prior's conditioning tensors, VAE decode.  Returns
+        (target image (H, W, 3), fusion weight = 1 - alpha_cumprod at
+        max_thres).  S scenes' renders and features
         go through one encode, one PLMS chain at batch S (one step count:
         ``max_thres`` is shared) and one decode; the weight is then (S,)."""
         models, cfg = self.models, self.cfg
@@ -474,7 +475,8 @@ class SceneSteps:
             models.ddpm, functools.partial(models.denoise_fn,
                                            bf16=cfg.sampler_bf16),
             latents, max_thres,
-            cond_images=self._batch(features), cond_scale=cfg.cond_scale,
+            cond_images=cond_map(self._batch, features),
+            cond_scale=cfg.cond_scale,
             plms_steps=cfg.plms_steps, generator=generator,
             noises=plms_noise)
         return (self._unbatch(models.vae_decode(pred_x0)),
@@ -535,6 +537,12 @@ class SceneSteps:
                     draws=None, bitfield=None):
         return self.update(self.fusion_losses, vc, cam, features,
                             max_thres, generator, draws, bitfield)
+
+
+def cond_map(fn: Callable, cond):
+    """``fn`` on the sampler's conditioning: a tensor, or each tensor of a
+    tuple (Zero123's token and concat latent)."""
+    return tuple(map(fn, cond)) if isinstance(cond, tuple) else fn(cond)
 
 
 def make_scene_step_fns(field: NGPField, cfg: DistillConfig,
@@ -598,7 +606,9 @@ def build_feature_cache(models, scene_cameras: Cameras,
     """Phase A: EFT feature (256, h, w) and RGB (H, W, 3) images for the
     scene's cameras and ``n_aug_cameras`` jittered orbit cameras, each in
     a frame centred on itself, with the input views as context.  The
-    context images go through the ResNet trunk once."""
+    context images go through the ResNet trunk once.  The features are
+    then the models' ``prior_conditioning`` of each camera: the EFT
+    features for the VLDM, (token, concat latent) for Zero123."""
     eft_hw = image_size // cfg.eft_scale
     aug = get_interpolated_path(scene_cameras, n=cfg.n_aug_cameras,
                                 theta_offset_max=cfg.theta_offset_max,
@@ -620,7 +630,11 @@ def build_feature_cache(models, scene_cameras: Cameras,
         imgs.append(resize_bilinear(rgb, (image_size, image_size),
                                     align_corners=False)[0])
         feats.append(feat[0].permute(2, 0, 1))
-    return {"features": torch.stack(feats),       # (M, 256, h, w)
+    # the sampler's conditioning: the EFT's (M, 256, h, w) features, or
+    # the models' own of each cached camera (a tuple of (M, ...) tensors)
+    features = models.prior_conditioning(torch.stack(feats), aug_all,
+                                         scene_rgb, input_idx)
+    return {"features": features,
             "eft_images": torch.stack(imgs),      # (M, H, W, 3)
             "cameras_vox": [get_camera_slice(aug_vox, [ci])
                             for ci in range(len(aug_vox))]}
@@ -653,7 +667,8 @@ def distillation_loop(
         raise ValueError("the diffusion arm needs the EFT/VAE/UNet models")
     device = generator.device
     first_span = spans.mark()
-    spans.use_device(device)
+    spans.use_device(device, spans.SLOTS if models is None
+                     else models.span_slots)
     image_size = scene.images.shape[1]
     render_hw = image_size // cfg.hw_scale
 
@@ -772,7 +787,8 @@ def distillation_loop(
                 if fusion:
                     floss = steps.fusion_step(
                         vc, feature_cache["cameras_vox"][ci],
-                        feature_cache["features"][ci], mt, generator,
+                        cond_map(lambda f: f[ci], feature_cache["features"]),
+                        mt, generator,
                         bitfield=bitfield)
                 elif use_diffusion:
                     floss = steps.bootstrap_step(

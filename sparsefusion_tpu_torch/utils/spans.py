@@ -29,7 +29,8 @@ counters added while it was the innermost open span (:func:`count`).  Finished s
 Device side.  On a CUDA device (:func:`use_device`) each edge of a
 recorded span enqueues ``span_stamp_kernel`` (``csrc/span_stamp.cu``):
 one thread writes (slot, tag, ``%globaltimer``) into a ring of
-:data:`SLOTS` stamps at a cursor it advances on the device.  Inside a
+:data:`SLOTS` stamps (by default; :func:`use_device`) at a cursor it
+advances on the device.  Inside a
 CUDA graph's capture (:func:`capture`, which ``utils/graphs.py``'s
 ``GraphRunner`` opens) the spans are not recorded but kept as the
 graph's template (names, nesting, counters, stamp offsets), and their
@@ -63,8 +64,9 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-# finished spans kept on the host; stamp slots on the device (3 int64
-# each: 1.5 MiB)
+# finished spans kept on the host; stamp slots on the device by default
+# (3 int64 each: 1.5 MiB; a loop whose iterations stamp more asks for a
+# larger ring, ``use_device``)
 SPANS = 1 << 16
 SLOTS = 1 << 16
 _CALIBRATION_TAG = -1
@@ -158,6 +160,7 @@ class Recorder:
         self.reported = self.setup_reported = 0
         # the device ring
         self.ring = None
+        self.slots = SLOTS
         self.stamping = False
         self.cursor = 0               # the host's mirror of the device's
         self._cursor_dev = None
@@ -168,14 +171,17 @@ class Recorder:
 
     # ---- switches -----------------------------------------------------
 
-    def use_device(self, device) -> None:
+    def use_device(self, device, slots: int = SLOTS) -> None:
         device = torch.device(device)
         self.stamping = device.type == "cuda"
-        if self.stamping and self.ring is None:
+        grow = self.ring is not None and slots > self.slots \
+            and self.cursor == 0
+        if self.stamping and (self.ring is None or grow):
             from sparsefusion_tpu_torch.kernels._build import load_library
 
             self._launch = load_library().sf_span_stamp
-            self.ring = torch.zeros((SLOTS, 3), dtype=torch.int64,
+            self.slots = max(slots, self.slots)
+            self.ring = torch.zeros((self.slots, 3), dtype=torch.int64,
                                     device=device)
             self._cursor_dev = torch.zeros((1,), dtype=torch.int64,
                                            device=device)
@@ -193,7 +199,7 @@ class Recorder:
         its offset in the replay)."""
         stream = torch.cuda.current_stream(self.ring.device).cuda_stream
         err = self._launch(self.ring.data_ptr(), self._cursor_dev.data_ptr(),
-                           SLOTS, tag, stream)
+                           self.slots, tag, stream)
         if err != 0:
             raise RuntimeError(f"span stamp launch failed: CUDA error {err}")
         tpl = self.template
@@ -278,12 +284,12 @@ class Recorder:
             slot = self._stamp(_CALIBRATION_TAG)
             torch.cuda.synchronize(device)
             pairs.append((slot, t0, _now()))
-        oldest = self.cursor - SLOTS
+        oldest = self.cursor - self.slots
         want = [slot for slot, _, _ in pairs]
         if spans:
             want += [x for sp in self.pending for x in (sp.s0, sp.s1)
                      if x is not None and x >= oldest]
-        idx = torch.tensor([x % SLOTS for x in want], device=device)
+        idx = torch.tensor([x % self.slots for x in want], device=device)
         rows = dict(zip(want, self.ring.index_select(0, idx).tolist()))
 
         def at(slot):
@@ -554,7 +560,7 @@ def sync_point() -> None:
             line = report_line(r, units, r.reported)
             r.reported = max(u.id for u in units) + 1
             r.reporter(line)
-    elif r.pending and r.cursor - r.pending_from > SLOTS // 2:
+    elif r.pending and r.cursor - r.pending_from > r.slots // 2:
         r.drain()
 
 
@@ -629,11 +635,14 @@ def disable() -> None:
     _R.reporter = None
 
 
-def use_device(device) -> None:
+def use_device(device, slots: int = SLOTS) -> None:
     """Stamp the device time of recorded spans on ``device`` (a CUDA
     device; any other turns the stamps of eager spans off).  Makes the
-    ring, and loads the kernels' library, at the first CUDA device."""
-    _R.use_device(device)
+    ring of ``slots`` stamps, and loads the kernels' library, at the
+    first CUDA device; a later call asking for more slots makes a larger
+    ring only before the first stamp (a captured graph holds the ring it
+    was captured on)."""
+    _R.use_device(device, slots)
 
 
 def mark() -> int:
