@@ -14,7 +14,7 @@ first), except in the TF32 train profile of step 7.
    per kernel and their SASS opcode counts (HMMA, HGMMA, RED, ATOM, LDG);
    both of K2's instances (f32 and bf16) must issue HMMA, and the bf16
    instance's wgmma body HGMMA, with no spills; each of K4's instances
-   must issue HMMA (their spills printed).  ``--k4-only``: then K4's
+   (``kernels/conv2d.py::INSTANCES``) HGMMA, with no spills.  ``--k4-only``: then K4's
    kernel phase (below) and the batch-1 UNet evaluation's profile of step
    6 alone.
 3. Kernel phase: the fused grid-encode kernel (K1), forward and table
@@ -56,10 +56,12 @@ first), except in the TF32 train profile of step 7.
    bytes bound and the 32-byte sectors per second; one f32 case; indices
    outside [0, R) must give rows of zeros.  The split-K convolution (K4)
    against its plain version (``F.conv2d``, cuDNN with TF32 off) at the
-   batch-1 UNet's 4x4 3x3 1024->1024, 8x8 3x3 1536->1024, 32x32 3x3
-   256->256 and 15x15 stem: within 1e-5 of float64, two launches
-   bit-equal, its time and plan, its bound (weight, input and output
-   bytes against 2 M N K operations at the f32 rate), the plain version's
+   batch-1 VLDM's 4x4 3x3 1024->1024, 8x8 3x3 1536->1024, 32x32 3x3
+   256->256, 15x15 stem and one-pixel 1x1 512->1024, and Zero123's 32x32
+   3x3 320->320 and 4x4 3x3 2560->1280: within 1e-5 of float64, two
+   launches bit-equal, its time and plan, its bound (weight, input and
+   output bytes against 2 M N K operations at the f32 rate, and at the
+   3xTF32 rate: a third of the TF32 tensor cores'), the plain version's
    time and, as its yardstick, the same call with ``cudnn.benchmark`` on,
    each call reading a cold copy of the weights, and one sum over that
    copy (the card's own read rate).  Times are device times by
@@ -239,6 +241,9 @@ UNET_CONVS = 133
 # NVIDIA H100 SXM data sheet: memory rate (the peaks of f32 outside the
 # tensor cores and of bf16 on them are the flops tool's)
 HBM_BYTES_PER_S = 3.35e12
+# ... and three TF32 tensor-core products for each f32 one (3xTF32: K2
+# f32 and K4): a third of the TF32 peak, 495 TFLOP/s
+TF32X3_OPS_PER_S = 495e12 / 3
 
 
 _T0 = time.perf_counter()
@@ -999,16 +1004,20 @@ def attention_phase(dtype=torch.float32):
     return err_max, times, by_body
 
 
-# K4 at the batch-1 UNet's shapes: (x shape, weight shape, stride,
-# padding) of the 4x4 level's 3x3, the 8x8 up block's 3x3 over the skip,
-# the 32x32 level's 3x3 and the stem's 15x15
+# K4 at the batch-1 UNets' shapes: (x shape, weight shape, stride,
+# padding) of the VLDM's 4x4 level's 3x3, its 8x8 up block's 3x3 over the
+# skip, its 32x32 level's 3x3, its stem's 15x15 and a one-pixel 1x1 (the
+# global context's); Zero123's 32x32 3x3 and its 4x4 3x3 over the skip
 K4_SHAPES = {
     "4x4_3x3_1024to1024": ((1, 1024, 4, 4), (1024, 1024, 3, 3), 1, 1),
     "8x8_3x3_1536to1024": ((1, 1536, 8, 8), (1024, 1536, 3, 3), 1, 1),
     "32x32_3x3_256to256": ((1, 256, 32, 32), (256, 256, 3, 3), 1, 1),
     "32x32_stem_15x15_260to64": ((1, 260, 32, 32), (64, 260, 15, 15), 1, 7),
+    "1x1_1x1_512to1024": ((1, 512, 1, 1), (1024, 512, 1, 1), 1, 0),
+    "z123_32x32_3x3_320to320": ((1, 320, 32, 32), (320, 320, 3, 3), 1, 1),
+    "z123_4x4_3x3_2560to1280": ((1, 2560, 4, 4), (1280, 2560, 3, 3), 1, 1),
 }
-K4_KERNEL = "conv2d_splitk_kernel"
+K4_KERNEL = "conv2d_splitk_wgmma_kernel"
 # f32: K4 within 1e-5 of its plain version in float64, and of the plain
 # version in f32 within 1e-5 beyond that one's own distance from float64
 # (cuDNN's f32 sums over long K sit up to 4e-5 from it;
@@ -1076,7 +1085,7 @@ def conv2d_phase():
         finally:
             torch.backends.cudnn.benchmark = before
         times[name] = {
-            "m": m, "n": ws[0], "k": k, "tile_rows": p.tile_rows,
+            "m": m, "n": ws[0], "k": k, "tile_pixels": p.tile_pixels,
             "splits": p.splits, "ctas": p.ctas,
             "ms": named_ms(device_ms(cold(k4.conv2d_splitk_cuda),
                                      PROFILE_ITERS), K4_KERNEL),
@@ -1090,6 +1099,10 @@ def conv2d_phase():
             "library_max_abs_err": library_err}
         t = times[name]
         t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["bound_3xtf32_ms"], t["bound_3xtf32_by"] = _bound(
+            _nbytes(x, w, bias, out_k), 2 * m * ws[0] * k,
+            TF32X3_OPS_PER_S)
+        t["bound_3xtf32_share"] = t["bound_3xtf32_ms"] / t["ms"]
         # the card's own read rate: one sum over a cold copy of the weights
         t["weight_read_ms"] = sum(device_ms(
             cold(lambda x_, w_, *_: w_.sum()), PROFILE_ITERS).values())
@@ -3952,15 +3965,14 @@ def main(argv=None) -> int:
         assert sass[f]["HGMMA"] > 0, f"{f} issues no HGMMA"
         assert spills.get(f) == 0, f"{f} spills {spills.get(f)} bytes"
 
-    # K4: an instance a tile height, each issuing tensor-core products
-    # (HMMA); their spills printed
-    from sparsefusion_tpu_torch.kernels.conv2d import TILE_ROWS
+    # K4: its instances (tile widths and channels), each issuing warpgroup
+    # products (HGMMA), with no spills
+    from sparsefusion_tpu_torch.kernels.conv2d import INSTANCES
     k4_fns = [f for f in sass if K4_KERNEL in f]
-    assert len(k4_fns) == len(TILE_ROWS), k4_fns
+    assert len(k4_fns) == len(INSTANCES), k4_fns
     for f in k4_fns:
-        assert sass[f]["HMMA"] > 0, f"{f} issues no HMMA"
-    print("K4 spill bytes: " + json.dumps({f: spills.get(f)
-                                           for f in k4_fns}))
+        assert sass[f]["HGMMA"] > 0, f"{f} issues no HGMMA"
+        assert spills.get(f) == 0, f"{f} spills {spills.get(f)} bytes"
 
     _mark("build")
     if args.k4_only:

@@ -173,10 +173,12 @@ def load_library() -> ctypes.CDLL:
     lib.sf_row_gather.restype = i32
     lib.sf_span_stamp.argtypes = [vp, vp, i64, i64, vp]
     lib.sf_span_stamp.restype = i32
-    # x, w, bias, out; the shape (11 ints) and the plan (tile rows,
-    # splits, 16-byte weight rows); the stream
-    lib.sf_conv2d_splitk.argtypes = [vp] * 4 + [i32] * 14 + [vp]
+    # x, w, bias, out; the shape (11 ints) and the plan (tile pixels and
+    # channels, splits, weight tiles by TMA); the stream
+    lib.sf_conv2d_splitk.argtypes = [vp] * 4 + [i32] * 15 + [vp]
     lib.sf_conv2d_splitk.restype = i32
+    lib.sf_conv2d_splitk_max_clusters.argtypes = [i32]
+    lib.sf_conv2d_splitk_max_clusters.restype = i32
     return lib
 
 

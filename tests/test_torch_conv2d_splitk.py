@@ -2,18 +2,20 @@
 ``kernels/conv2d.py``): its arithmetic emulated on the CPU, its plan, its
 routing, and on a CUDA card the kernel itself.
 
-The kernel runs a convolution as an implicit GEMM (M = B*Ho*Wo output
-pixels, N = C_out, K = C_in*kh*kw) whose K axis is cut into the plan's S
-splits of whole 32-wide blocks, one CTA of a thread-block cluster each.
-Each CTA sums its K range in 8-wide ``mma.sync.m16n8k8`` TF32 steps with
-f32 accumulation, every operand split as x = big + small (3xTF32, as K2:
+The kernel runs a convolution as an implicit GEMM with the output
+channels on ``wgmma``'s 64 rows, the output pixels (M = B*Ho*Wo) on its
+columns and K = C_in*kh*kw cut into the plan's S splits of whole 32-wide
+blocks, one CTA of a thread-block cluster each.  In each CTA two
+warpgroups take the split's blocks in turn (even, odd); each block is
+four 8-deep steps of three TF32 products with f32 accumulation, every
+operand split once as x = big + small (3xTF32, as K2:
 ``test_torch_attention_tf32split.py``; here big rounds to nearest and
-small toward zero), two warp groups taking half of each 32-wide block's
-steps; the S partial tiles are then summed in rank order 0..S-1 and the
-bias added.  :func:`emulated_conv2d` repeats
-that arithmetic in PyTorch at the UNet's batch-1 shapes with their
-channels cut: within 1e-5 of float64 and of ``F.conv2d``, where one TF32
-pass is not.
+small toward zero), summed into a fresh partial that is added to the
+warpgroup's accumulator; the warpgroups' sums add (warpgroup 0's first),
+then the S partial tiles in rank order 0..S-1, then the bias.
+:func:`emulated_conv2d` repeats that arithmetic in PyTorch at the UNets'
+batch-1 shapes with their channels cut: within 1e-5 of float64 and of
+``F.conv2d``, where one TF32 pass is not.
 
 The card tests (marker ``cuda``) skip without a card; this file imports
 no jax, so ``python -m pytest --noconftest tests/test_torch_conv2d_splitk.py``
@@ -35,20 +37,28 @@ from sparsefusion_tpu_torch.utils import spans
 
 torch.set_num_threads(2)
 TOL = 1e-5
-# the kernel's warp groups along K: each takes this share of the 8-wide
-# steps of every 32-wide K block
+# the kernel's consumer warpgroups: where a tile has 64 output channels
+# each takes every K_GROUPS-th 32-wide K block of its split (at 128, each
+# takes every block for its 64 channels)
 K_GROUPS = 2
 # no-grad convolutions of one evaluation of the full-width UNet
 # (``UNetConfig()``): K4's launches in each ``unet`` span
 UNET_CONVS = 133
+# ... and of Zero-1-to-3's UNet (``Zero123Config()``)
+Z123_CONVS = 98
 
-# (x shape, weight shape, stride, padding): the UNet's batch-1 shapes with
+# (x shape, weight shape, stride, padding): the UNets' batch-1 shapes with
 # channels cut: the 15x15 stem, a 3x3 at M = 16 (4x4) and at M = 1024
-# (32x32, 5 splits over 4.5 K blocks), the 4x4 stride-2 downsample
+# (32x32, 5 splits over 4.5 K blocks), the 4x4 stride-2 downsample; then
+# Zero123's: a 1x1 projection at M = 64, the stride-2 3x3 into 16x16,
+# CLIP's 14x14 stride-14 patch embedding
 EMULATED = [((1, 8, 32, 32), (16, 8, 15, 15), 1, 7),
             ((1, 64, 4, 4), (64, 64, 3, 3), 1, 1),
             ((1, 16, 32, 32), (32, 16, 3, 3), 1, 1),
-            ((1, 32, 16, 16), (64, 32, 4, 4), 2, 1)]
+            ((1, 32, 16, 16), (64, 32, 4, 4), 2, 1),
+            ((1, 96, 8, 8), (80, 96, 1, 1), 1, 0),
+            ((1, 24, 32, 32), (40, 24, 3, 3), 2, 1),
+            ((1, 3, 56, 56), (72, 3, 14, 14), 14, 0)]
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -90,11 +100,12 @@ def _mma(acc, a, b, passes, toward_zero=False):
 def emulated_conv2d(x, w, bias, stride, padding, passes=3,
                     toward_zero=False, block_partials=True):
     """K4's arithmetic on f32 CPU tensors, by the plan's splits: in each
-    split, each K group's 8-wide steps of a 32-wide K block summed into a
-    fresh partial and added to the group's accumulator in f32
-    (``block_partials``; else every step into the accumulator), the
-    groups' sums added (group 0's first), the splits' sums added in rank
-    order, then the bias."""
+    split, warpgroup g takes the split's blocks g, g + K_GROUPS, ... (every
+    block where the plan's tiles have 128 channels); each
+    32-wide block's four 8-deep steps summed into a fresh partial and
+    added to the warpgroup's accumulator in f32 (``block_partials``; else
+    every step into the accumulator), the warpgroups' sums added (group
+    0's first), the splits' sums added in rank order, then the bias."""
     b, _, h, wd = x.shape
     cout, _, kh, kw = w.shape
     ho = k4.out_size(h, kh, stride, padding)
@@ -104,20 +115,22 @@ def emulated_conv2d(x, w, bias, stride, padding, passes=3,
     a = a.transpose(1, 2).reshape(b * ho * wo, -1)
     wm = w.reshape(cout, -1)
     m, k = a.shape
-    splits = k4.plan(m, cout, k).splits
+    p = k4.plan(m, cout, k)
+    groups = K_GROUPS if p.tile_channels == 64 else 1
     blocks = math.ceil(k / k4.K_BLOCK)
     parts = []
-    group_steps = k4.K_BLOCK // K_GROUPS
-    for s in range(splits):
-        accs = [torch.zeros(m, cout) for _ in range(K_GROUPS)]
-        for kb in range(s * blocks // splits, (s + 1) * blocks // splits):
-            for group, acc in enumerate(accs):
-                k0 = kb * k4.K_BLOCK + group * group_steps
-                part = torch.zeros(m, cout) if block_partials else acc
-                for kk in range(k0, min(k, k0 + group_steps), 8):
-                    part = _mma(part, a[:, kk:kk + 8], wm[:, kk:kk + 8].T,
-                                passes, toward_zero)
-                accs[group] = acc + part if block_partials else part
+    for s in range(p.splits):
+        kb0, kb1 = s * blocks // p.splits, (s + 1) * blocks // p.splits
+        accs = [torch.zeros(m, cout) for _ in range(groups)]
+        for kb in range(kb0, kb1):
+            group = (kb - kb0) % groups
+            acc = accs[group]
+            part = torch.zeros(m, cout) if block_partials else acc
+            k0 = kb * k4.K_BLOCK
+            for kk in range(k0, min(k, k0 + k4.K_BLOCK), 8):
+                part = _mma(part, a[:, kk:kk + 8], wm[:, kk:kk + 8].T,
+                            passes, toward_zero)
+            accs[group] = acc + part if block_partials else part
         total = accs[0]
         for acc in accs[1:]:
             total = total + acc
@@ -161,7 +174,7 @@ def test_3xtf32_split_k_meets_f32_tolerance(case):
 def test_block_partials_hold_the_tensor_cores_rounding():
     """The 4x4 level's 3x3 at its full depth (K = 9216, 8 splits of 36
     blocks; output channels cut to 64): with every product added toward
-    zero, as the tensor cores add, one accumulator over a K group's 216
+    zero, as the tensor cores add, one accumulator over a warpgroup's 72
     steps of a split leaves the f32 tolerance, and a fresh partial each
     32-wide block keeps within it."""
     x, w, bias = _conv_inputs((1, 1024, 4, 4), (64, 1024, 3, 3))
@@ -186,28 +199,41 @@ def test_single_pass_tf32_misses_f32_tolerance(case):
 
 
 @functools.lru_cache(maxsize=None)
-def unet_conv_calls(batch: int):
-    """Every convolution call of one no-grad evaluation of the full-width
-    UNet at ``batch``, the sampler's 32 x 32 latent and 256 feature
-    channels, in order: (x shape, weight shape, stride, padding), traced
-    on the meta device."""
+def unet_conv_calls(batch: int, unet: str = "vldm"):
+    """Every convolution call of one no-grad evaluation at ``batch``, in
+    order: (x shape, weight shape, stride, padding), traced on the meta
+    device.  ``unet``: "vldm", the full-width UNet at the sampler's 32 x 32
+    latent and 256 feature channels; "z123", Zero-1-to-3's UNet at its 8 x
+    32 x 32 input and one 768-wide context token; "clip", CLIP ViT-L/14's
+    image tower (its patch embedding) at 224 x 224."""
     from sparsefusion_tpu_torch.nn.unet import EfficientUNet, UNetConfig
+    from sparsefusion_tpu_torch.nn.zero123 import (CLIPImageEncoder,
+                                                   Zero123UNet)
+
+    def meta(*shape):
+        return torch.empty(*shape, device="meta")
 
     with torch.device("meta"):
-        unet = EfficientUNet(UNetConfig())
+        model, args = {
+            "vldm": lambda: (EfficientUNet(UNetConfig()), (
+                meta(batch, 4, 32, 32), meta(batch),
+                meta(batch, 256, 32, 32))),
+            "z123": lambda: (Zero123UNet(), (
+                meta(batch, 8, 32, 32), meta(batch), meta(batch, 1, 768))),
+            "clip": lambda: (CLIPImageEncoder(),
+                             (meta(batch, 3, 224, 224),)),
+        }[unet]()
     calls = []
 
     def hook(module, inputs, _):
         calls.append((tuple(inputs[0].shape), tuple(module.weight.shape),
                       module.stride, module.padding))
 
-    for m in unet.modules():
+    for m in model.modules():
         if isinstance(m, layers.Conv2d):
             m.register_forward_hook(hook)
     with torch.no_grad():
-        unet(torch.empty(batch, 4, 32, 32, device="meta"),
-             torch.empty(batch, device="meta"),
-             torch.empty(batch, 256, 32, 32, device="meta"))
+        model(*args)
     return tuple(calls)
 
 
@@ -225,46 +251,71 @@ def test_unet_convolutions_are_counted():
     gemms = {_gemm(c) for c in calls}
     assert {(16, 1024, 9216), (64, 1024, 13824), (1024, 256, 2304),
             (1024, 64, 58500)} <= gemms
+    # Zero123's: the 32x32 3x3 320 -> 320, the 4x4 skip concatenation
+    # 2560 -> 1280, a 1x1 projection at 8x8; CLIP's patch embedding
+    z123 = unet_conv_calls(1, "z123")
+    assert len(z123) == Z123_CONVS
+    assert {(1024, 320, 2880), (16, 1280, 23040), (64, 1280, 1280)} <= {
+        _gemm(c) for c in z123}
+    assert {_gemm(c) for c in unet_conv_calls(1, "clip")} == {
+        (256, 1024, 588)}
 
 
 @pytest.mark.parametrize("batch", [1, 4])
 def test_plan_covers_the_card_in_one_wave(batch):
-    """At every distinct convolution of the batch-1 and batch-4 UNet: at
-    most one wave, at most 8 splits, the grid at 90% of the SMs or more
-    unless the splits are at their cap (8, or K's blocks: the GCA gates'
-    one-pixel convolutions), a tile no taller than the
-    power of two that holds M, and one split where the tiles alone fill
-    the card."""
-    sms = k4.H100_SMS
-    for m, n, k in sorted({_gemm(c) for c in unet_conv_calls(batch)}):
+    """At every distinct convolution of both UNets and CLIP's patch
+    embedding at ``batch``: at most 8 splits (the portable cluster size)
+    and at most K's blocks; all clusters in one wave of the card's
+    cluster occupancy (:data:`H100_CLUSTERS`) unless the tiles alone
+    exceed it, and the most splits that allows; a tile's pixels one of the
+    instances, the least that holds M, else 64; its channels 128 where M
+    and N pass 64 (the products bound those), else 64; one split where the
+    tiles alone fill the card."""
+    clusters = k4.H100_CLUSTERS
+    shapes = {_gemm(c) for unet in ("vldm", "z123", "clip")
+              for c in unet_conv_calls(batch, unet)}
+    for m, n, k in sorted(shapes):
         p = k4.plan(m, n, k)
         tiles = p.grid[1] * p.grid[2]
-        assert p.grid == (p.splits, math.ceil(n / 64),
-                          math.ceil(m / p.tile_rows))
-        assert 1 <= p.splits <= k4.MAX_SPLITS, (m, n, k, p)
-        assert p.ctas <= sms or p.splits == 1, (m, n, k, p)
-        k_blocks = math.ceil(k / k4.K_BLOCK)
-        capped = p.splits == min(k4.MAX_SPLITS, k_blocks)
-        assert p.ctas >= 0.9 * sms or capped or tiles * 2 > sms, \
-            (m, n, k, p)
-        assert p.tile_rows in k4.TILE_ROWS, (m, n, k, p)
-        assert p.tile_rows == 16 or p.tile_rows // 2 < m, (m, n, k, p)
-        if tiles >= sms:
+        assert p.grid == (p.splits, math.ceil(n / p.tile_channels),
+                          math.ceil(m / p.tile_pixels))
+        assert p.tile_channels == (128 if m > 64 and n > 64 else 64)
+        cap = min(k4.MAX_SPLITS, math.ceil(k / k4.K_BLOCK))
+        assert 1 <= p.splits <= cap, (m, n, k, p)
+        assert tiles <= clusters[p.splits - 1] or p.splits == 1, (m, n, k, p)
+        assert p.splits == cap or tiles > clusters[p.splits], (m, n, k, p)
+        assert p.tile_pixels in k4.TILE_PIXELS, (m, n, k, p)
+        if m <= 64:
+            assert p.tile_pixels // 2 < m or p.tile_pixels == 8, (m, n, k, p)
+        else:
+            assert p.tile_pixels == 64, (m, n, k, p)
+        if tiles >= clusters[0]:
             assert p.splits == 1, (m, n, k, p)
 
 
 def test_plan_at_the_main_shapes():
-    """The 4x4 level: 16 tiles of 64 channels, 8 splits; the 8x8 up
-    block: one row tile, 8 splits; the 32x32 3x3: 16 x 4 tiles, 2 splits;
-    the 15x15 stem: 16 tiles of 64 rows, 8 splits; batch 4 at 32x32: the
-    tiles alone, one split."""
-    assert k4.plan(16, 1024, 9216) == k4.SplitKPlan(16, 8, (8, 16, 1))
-    assert k4.plan(64, 1024, 13824) == k4.SplitKPlan(64, 8, (8, 16, 1))
-    assert k4.plan(1024, 256, 2304) == k4.SplitKPlan(64, 2, (2, 4, 16))
-    assert k4.plan(1024, 64, 58500) == k4.SplitKPlan(64, 8, (8, 1, 16))
-    assert k4.plan(4096, 256, 2304) == k4.SplitKPlan(64, 1, (1, 4, 64))
+    """The 4x4 level: 16 tiles of 64 channels by 16 pixels, 6 splits (16
+    clusters of 7 or 8 CTAs would take two waves); the 8x8 up block: 16
+    tiles of 64 pixels, 6 splits; the 32x32 3x3: 2 x 16 tiles of 128
+    channels by 64 pixels, 3 splits; the 15x15 stem (64 channels): 16
+    tiles of 64 pixels, 6 splits; batch 4 at 32x32: 2 x 64 tiles, one
+    split; Zero123's 4x4 skip convolution: 20 tiles, 5 splits; its 32x32
+    3x3: 3 x 16 tiles of 128 channels, 2 splits; CLIP's patch embedding: 8
+    x 4 tiles, 3 splits; a one-pixel 1x1: an 8-pixel tile."""
+    assert k4.plan(16, 1024, 9216) == k4.SplitKPlan(16, 6, (6, 16, 1))
+    assert k4.plan(64, 1024, 13824) == k4.SplitKPlan(64, 6, (6, 16, 1))
+    assert k4.plan(1024, 256, 2304) == k4.SplitKPlan(64, 3, (3, 2, 16), 128)
+    assert k4.plan(1024, 64, 58500) == k4.SplitKPlan(64, 6, (6, 1, 16))
+    assert k4.plan(4096, 256, 2304) == k4.SplitKPlan(64, 1, (1, 2, 64), 128)
+    assert k4.plan(16, 1280, 23040) == k4.SplitKPlan(16, 5, (5, 20, 1))
+    assert k4.plan(1024, 320, 2880) == k4.SplitKPlan(64, 2, (2, 3, 16), 128)
+    assert k4.plan(256, 1024, 588) == k4.SplitKPlan(64, 3, (3, 8, 4), 128)
+    assert k4.plan(1, 1024, 512) == k4.SplitKPlan(8, 6, (6, 16, 1))
     # never more splits than K blocks
     assert k4.plan(1, 128, 64).splits == 2
+    # a card that runs every cluster size 132 times: 8 splits, 128 CTAs
+    assert k4.plan(16, 1024, 9216, (132,) * 8) == k4.SplitKPlan(
+        16, 8, (8, 16, 1))
 
 
 def _stand_in(is_cuda=True, dtype=torch.float32, requires_grad=False):
@@ -387,11 +438,13 @@ def _check_against_plain(got, x, w, bias, stride, padding):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [1, 4])
-def test_kernel_matches_plain_at_every_unet_shape(batch, full_f32):
+@pytest.mark.parametrize("unet,batch", [("vldm", 1), ("vldm", 4),
+                                        ("z123", 1), ("z123", 4),
+                                        ("clip", 1)])
+def test_kernel_matches_plain_at_every_unet_shape(unet, batch, full_f32):
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(batch)
-    for call in sorted(set(unet_conv_calls(batch))):
+    for call in sorted(set(unet_conv_calls(batch, unet))):
         x, w, bias = _card_inputs(call, gen)
         _, _, stride, padding = call
         got = k4.conv2d_splitk_cuda(x, w, bias, stride, padding)
@@ -400,9 +453,9 @@ def test_kernel_matches_plain_at_every_unet_shape(batch, full_f32):
 
 @pytest.mark.cuda
 def test_kernel_ragged_shapes(full_f32):
-    """Shapes off every tile: odd channels (K % 4 != 0 takes the 4-byte
-    weight copies), a bias-free call, stride 2 with odd sizes, a
-    non-contiguous input."""
+    """Shapes off every tile: odd channels (K % 4 != 0: the producer copies
+    the weight tiles itself, without TMA), a bias-free call, stride 2 with
+    odd sizes, a non-contiguous input."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = [((3, 5, 11, 13), (7, 5, 3, 3), 1, 1, True),
@@ -420,17 +473,19 @@ def test_kernel_ragged_shapes(full_f32):
 @pytest.mark.cuda
 def test_every_instance_and_split_count(full_f32):
     """One convolution (the 4x4 stride-2 downsample into 8x8, K = 4096)
-    under every tile height and 1, 3, 5 and 8 splits (uneven shares of
-    K's 128 blocks, partial tiles split unevenly over the cluster)."""
+    under every instance (each tile width at 64 channels, and 128 channels
+    by 64 pixels) and 1, 3, 5 and 8 splits (uneven shares of K's 128
+    blocks, odd block counts for the two warpgroups, partial tiles split
+    unevenly over the cluster)."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(5)
     call = ((1, 256, 16, 16), (200, 256, 4, 4), 2, 1)
     x, w, bias = _card_inputs(call, gen)
     m, n = 64, 200
-    for rows in k4.TILE_ROWS:
+    for pixels, rows in k4.INSTANCES:
         for splits in (1, 3, 5, 8):
-            p = k4.SplitKPlan(rows, splits, (splits, math.ceil(n / 64),
-                                             math.ceil(m / rows)))
+            p = k4.SplitKPlan(pixels, splits, (
+                splits, math.ceil(n / rows), math.ceil(m / pixels)), rows)
             got = k4.conv2d_splitk_cuda(x, w, bias, 2, 1, run_plan=p)
             _check_against_plain(got, x, w, bias, 2, 1)
 
@@ -458,44 +513,64 @@ def test_kernel_refuses_what_it_does_not_take():
             k4.conv2d_splitk_cuda(*args)
 
 
-def _unet(gen):
+def _unet(gen, unet="vldm"):
+    if unet == "z123":
+        from sparsefusion_tpu_torch.models import _lecun_
+        from sparsefusion_tpu_torch.nn.zero123 import Zero123UNet
+
+        with torch.device("meta"):
+            model = Zero123UNet()
+        model = model.to_empty(device="cuda").eval()
+        _lecun_(model, gen)
+        return model
     from sparsefusion_tpu_torch.nn.unet import EfficientUNet, UNetConfig
 
-    unet = EfficientUNet(UNetConfig()).cuda()
-    unet.init_weights_(gen)
+    model = EfficientUNet(UNetConfig()).cuda()
+    model.init_weights_(gen)
     with torch.no_grad():   # a zero final conv would hide the UNet
-        unet.final_conv.weight.normal_(0.0, 0.05, generator=gen)
-    return unet
+        model.final_conv.weight.normal_(0.0, 0.05, generator=gen)
+    return model
 
 
 @pytest.mark.cuda
-def test_unet_forward_through_k4_matches_cudnn(full_f32):
+@pytest.mark.parametrize("unet,convs", [("vldm", UNET_CONVS),
+                                        ("z123", Z123_CONVS)])
+def test_unet_forward_through_k4_matches_cudnn(unet, convs, full_f32):
     """One batch-1 evaluation as the sampler makes it: every convolution
-    through K4, counted once a call by the launch counter and the
-    ``unet`` span's ``k4_launches``; the same evaluation with a gradient
+    through K4, counted once a call by the launch counter and the spans'
+    ``k4_launches``; the same evaluation with a gradient
     (cuDNN) agrees within f32 rounding (relative 1e-4, as the fused
     loop's losses are held to the eager loop's in ``chip_smoke.py``)."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    unet = _unet(gen)
-    x = torch.randn(1, 4, 32, 32, device="cuda", generator=gen)
-    log_snr = torch.full((1,), 0.5, device="cuda")
-    cond = torch.randn(1, 256, 32, 32, device="cuda", generator=gen)
+    model = _unet(gen, unet)
+    if unet == "z123":
+        args = (torch.randn(1, 8, 32, 32, device="cuda", generator=gen),
+                torch.full((1,), 500.0, device="cuda"),
+                torch.randn(1, 1, 768, device="cuda", generator=gen))
+    else:
+        args = (torch.randn(1, 4, 32, 32, device="cuda", generator=gen),
+                torch.full((1,), 0.5, device="cuda"),
+                torch.randn(1, 256, 32, 32, device="cuda", generator=gen))
     k4.reset_launches()
     spans.enable()
     try:
         with spans.unit("distill/iteration", 0):
             with spans.span("unet", unet_batch=1), torch.no_grad():
-                got = unet(x, log_snr, cond)
+                got = model(*args)
         torch.cuda.synchronize()
         snap = spans.snapshot()
     finally:
         spans.disable()
-    assert k4.conv2d_splitk_cuda.launches == UNET_CONVS
-    unet_spans = [s for s in snap if s["name"] == "unet"]
-    assert unet_spans[-1]["counts"]["k4_launches"] == UNET_CONVS
-    want = unet(x, log_snr, cond)   # parameters require grad: cuDNN
-    assert k4.conv2d_splitk_cuda.launches == UNET_CONVS
+    assert k4.conv2d_splitk_cuda.launches == convs
+    # each launch counts to the innermost open span: this evaluation's
+    # ``unet`` span, or Zero123's spatial transformers (``st``) inside it
+    # for their 1x1 projections
+    first = [s for s in snap if s["name"] == "unet"][-1]["id"]
+    assert sum((s.get("counts") or {}).get("k4_launches", 0)
+               for s in snap if s["id"] >= first) == convs
+    want = model(*args)   # parameters require grad: cuDNN
+    assert k4.conv2d_splitk_cuda.launches == convs
     # cuDNN's f32 convolutions are themselves up to 4e-5 from float64
     rel = ((got - want.detach()).norm() / want.norm()).item()
     assert rel <= 1e-4, rel
