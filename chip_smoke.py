@@ -82,19 +82,20 @@ first), except in the TF32 train profile of step 7.
    passed in) and near/far tightening at the loop's 128^3 grid, and the
    TPU preset's marching input step and subsampled fusion step inside
    that bitfield; one scene-batched input, bootstrap and fusion step
-   (S = 2, ``NGPFieldStack``) card against CPU.  The fused loop (the
-   iterations as CUDA graphs, ``distill/fused.py``) against the eager
-   loop from one seed at a small size (``DistillConfig()`` with the
-   narrow UNet, and the TPU preset NGP-only), for one scene and for a
-   batch of two in lockstep (``distill/batched.py``; the batch's graph
-   programs first run eagerly under the sync debug mode's "error"),
-   losses and fields within ``FUSED_TOL`` (the two-phase batch, whose
-   eager spread reaches it, within ``TWO_PHASE_BATCH_TOL``, with a
-   control whose graphs never see the iterations' draws and must leave
-   it), with the eager loop against itself beside (K1's backward adds
-   with atomics) and, with the occupancy grid, the bits each grid
-   update sets unlike the eager run's; a replayed graph's
-   draws bit-equal to the eager calls' from the same generator state.
+   (S = 2, ``NGPFieldStack``) card against CPU.  The loop's programs
+   (``distill/fused.py``) as CUDA graphs against the same programs
+   uncaptured (``fused_steps=False``, "eager" below) from one seed at a
+   small size (``DistillConfig()`` with the narrow UNet, and the TPU
+   preset NGP-only), for one scene and for a batch of two in lockstep
+   (``distill/batched.py``; the batch's graph programs first run eagerly
+   under the sync debug mode's "error"), losses and fields within
+   ``FUSED_TOL`` (the two-phase batch, whose eager spread reaches it,
+   within ``TWO_PHASE_BATCH_TOL``, with a control whose graphs never see
+   the iterations' draws and must leave it), with the eager run against
+   itself beside (K1's backward adds with atomics) and, with the
+   occupancy grid, the bits each grid update sets unlike the eager
+   run's; a replayed graph's draws bit-equal to the eager calls' from
+   the same generator state.
 5. The NGP-only demo at full width (``DistillConfig()``, ``NGPConfig()``,
    256 px, 100 iterations) through ``sparsefusion_tpu_torch.cli.demo.main``;
    then the TPU preset's (``--preset tpu``: 8 x C4 bf16 table, occupancy
@@ -106,26 +107,21 @@ first), except in the TF32 train profile of step 7.
    iterations a second beside the single scene's rate, K1's launches in
    Phase B equal to the single-scene run's (each for all four scenes),
    no synchronising call in the profiled windows besides the loss reads,
-   peak memory, every scene's PSNR >= 15; each batched demo again as its
-   eager twin (``--no_fused``, the same iterations).  The demos run
-   fused, as the card's default is; the single-scene NGP-only demo and
-   the TPU preset's run again eagerly (``--no_fused``), and each pair
-   prints
+   peak memory, every scene's PSNR >= 15.  The demos run as graphs, as
+   the card's default is, and each prints
    it/s between the loop's loss reads (with and without the graphs'
    capture seconds), the host's synchronising calls an iteration (sync
    debug mode), a ``torch.profiler`` window's device and host ms an
    iteration and idle share, the graphs (captures, seconds, replays)
-   and peak memory; K1's launches in each iteration equal the eager
-   run's.
+   and peak memory.
 6. Main path: the full-width diffusion demo (``UNetConfig()``,
    ``VAEConfig()``, ``EFTConfig()``, 256 px, 40 iterations, fusion from
-   iteration 20), fused, through ``cli.demo.main`` and again through
+   iteration 20), as graphs, through ``cli.demo.main`` and again through
    ``distillation_loop`` with ``DistillConfig(sampler_bf16=True)`` (30
    iterations) and with ``tpu_distill_config(occupancy_start=10,
    occupancy_update_every=8)`` (marching from iteration 10, fusion
-   gradient steps on 4096 rays); the f32 demo again eagerly for 30
-   iterations and the bf16 sampler's for 25, each pair printed as in
-   step 5 (the fusion window's device ms per UNet evaluation too).  Each
+   gradient steps on 4096 rays), each printed as in step 5 (the fusion
+   window's device ms per UNet evaluation too).  Each
    demo runs with the kernels' launch counts reset just before and read
    just after (a replayed graph adds the launches it captured); K2 must
    launch three times per UNet evaluation (every
@@ -136,8 +132,8 @@ first), except in the TF32 train profile of step 7.
    sampler makes it, under ``torch.profiler`` in f32, TF32 and bf16:
    device and host ms, kernels per evaluation, by kernel class.  The
    diffusion demo over four scenes with ``--scene_batch 4`` as graphs
-   (K2 three times and K4 133 times a UNet evaluation, each at batch 4),
-   and its eager twin for 25 iterations, printed as a pair.  LPIPS (seeded stand-in
+   (K2 three times and K4 133 times a UNet evaluation, each at batch 4).
+   LPIPS (seeded stand-in
    torchvision / lpips weights): the card against the CPU at 64 px, the
    device ms of the fusion step's perceptual term (forward and input
    backward at 256 px) beside its operations bound, and the diffusion
@@ -1489,8 +1485,9 @@ def _bits_apart(a, b):
 
 
 def fused_loop_card_check():
-    """The fused loop (CUDA graphs) against the eager loop on the card,
-    from one seed, at a small size: ``DistillConfig()`` at 32 px (3
+    """The loop's programs as CUDA graphs against the same programs
+    uncaptured (``fused_steps=False``, "eager") on the card, from one
+    seed, at a small size: ``DistillConfig()`` at 32 px (3
     bootstrap and 7 fusion iterations, 4 PLMS steps, the narrow UNet with
     64-wide heads) and the TPU preset NGP-only (occupancy from iteration
     2, marching, 128-ray input steps), each for one scene
@@ -1501,7 +1498,7 @@ def fused_loop_card_check():
     agree within ``FUSED_TOL``, not bit for bit: K1's backward adds with
     f32 atomics, in another order in every run, and the two-phase
     renderer and Adam's first steps magnify the differences; the eager
-    loop against itself gives the spread printed beside.  The two-phase
+    run against itself gives the spread printed beside.  The two-phase
     batch of two, whose eager spread reaches ``FUSED_TOL``, is held to
     ``TWO_PHASE_BATCH_TOL`` above it, and its control (graphs that never
     see the iterations' draws, ``_DrawsLoadedOnce``) must leave that
@@ -1582,8 +1579,7 @@ def fused_loop_card_check():
                               torch.Generator(device=dev).manual_seed(3))
             assert len(rs) == n_scenes
             for r in rs:
-                assert (r["fused"] is not None) == (fused is None), \
-                    r["fused"]
+                assert r["fused"]["graphs"] == (fused is None), r["fused"]
             runs[run], bits[run] = rs, log.bitfields
 
         f = runs["fused"]
@@ -1602,7 +1598,7 @@ def fused_loop_card_check():
             out[name]["bits_apart_by_update"] = {
                 run: _bits_apart(bits[run], bits["eager"])
                 for run in ("fused", "eager_again")}
-        print(f"fused loop vs eager loop on the card ({name}): "
+        print(f"graphs vs uncaptured programs on the card ({name}): "
               + json.dumps(out[name]))
         assert all(np.isfinite(r["losses"]).all() for rs in runs.values()
                    for r in rs)
@@ -1793,11 +1789,9 @@ def _train_reads(r):
 
 
 def _graph_stats(r):
-    """The fused programs' graphs of a loop's result: captures, their
-    seconds, replays, eager warm-ups (None for the eager loop)."""
+    """The programs' graphs of a loop's result: captures, their seconds,
+    replays, eager warm-ups."""
     f = r["fused"]
-    if f is None:
-        return None
     assert f["graphs"], f
     return {"captures": len(f["captures"]),
             "capture_s": _span_s(r, _is_capture),
@@ -1810,7 +1804,7 @@ class _LoopProbe:
     hook of ``distillation_loop`` and ``batched_distillation_loop`` (the
     CLI's calls included):
     the host's synchronising CUDA calls (``torch.cuda``'s sync debug mode,
-    each warning counted) and the K1 launches up to each iteration's end;
+    each warning counted) and the K2 launches up to each iteration's end;
     and for each of ``windows``' (a, b), a ``torch.profiler`` window over
     iterations a + 1 .. b, from a synchronise at the end of a to one at
     the end of b: the device's busy ms (its kernels' and copies' time)
@@ -1819,7 +1813,7 @@ class _LoopProbe:
 
     def __init__(self, windows):
         self.windows = windows
-        self.syncs_at, self.k1_at, self.k2_at, self.window = {}, {}, {}, {}
+        self.syncs_at, self.k2_at, self.window = {}, {}, {}
         self.hook_s = {}     # the profiler's own seconds at each iteration
         self._n, self._prof = 0, None
 
@@ -1858,14 +1852,12 @@ class _LoopProbe:
     def hook(self, itr):
         from torch.profiler import ProfilerActivity, profile
 
-        from sparsefusion_tpu_torch.kernels import attention, grid_encode
+        from sparsefusion_tpu_torch.kernels import attention
 
         torch.cuda.set_sync_debug_mode(0)
         self._n += sum("synchroniz" in str(w.message) for w in self._log)
         del self._log[:]
         self.syncs_at[itr] = self._n
-        self.k1_at[itr] = (grid_encode.grid_encode_cuda.launches,
-                           grid_encode.grid_encode_cuda_backward.launches)
         self.k2_at[itr] = attention.imagen_attention_cuda.launches
         # the profiler's start and its reading are the measurement's own
         # time, not the loop's (the synchronises only wait for the loop)
@@ -1912,20 +1904,13 @@ class _LoopProbe:
         """Synchronising calls an iteration over iterations a + 1 .. b."""
         return (self.syncs_at[b] - self.syncs_at[a]) / (b - a)
 
-    def k1_deltas(self):
-        """{iteration: (K1 forward, backward) launches in it}."""
-        itrs = sorted(self.k1_at)
-        return {i: tuple(x - y for x, y in zip(self.k1_at[i],
-                                               self.k1_at[p]))
-                for p, i in zip(itrs, itrs[1:])}
 
 
 def _probe_stats(r, probe, bounds, peak):
-    """The fused-or-eager loop's measurements of one run: it/s between
-    loss reads, syncs an iteration and the profiled windows, graphs,
-    peak memory (allocated, reserved; GiB)."""
-    return {"fused": r["fused"] is not None,
-            "rates": _rates(r, bounds, probe.hook_s),
+    """The loop's measurements of one run: it/s between loss reads, syncs
+    an iteration and the profiled windows, graphs, peak memory
+    (allocated, reserved; GiB)."""
+    return {"rates": _rates(r, bounds, probe.hook_s),
             "syncs_per_itr": {name: probe.syncs_per_itr(a, b)
                               for name, (a, b) in probe.windows.items()},
             "windows": probe.window, "graphs": _graph_stats(r),
@@ -1937,18 +1922,6 @@ def _probe_stats(r, probe, bounds, peak):
 def _peak():
     return [torch.cuda.max_memory_allocated() / 2 ** 30,
             torch.cuda.max_memory_reserved() / 2 ** 30]
-
-
-def _compare_pair(label, fused, eager):
-    """One line per demo pair, and K1's launches an iteration equal in the
-    iterations both ran."""
-    fd, ed = fused.pop("k1_deltas"), eager.pop("k1_deltas")
-    common = sorted(set(fd) & set(ed))
-    assert common and all(fd[i] == ed[i] for i in common), [
-        (i, fd[i], ed[i]) for i in common if fd[i] != ed[i]]
-    print(f"fused vs eager, {label}: " + json.dumps(
-        {"fused": fused, "eager": eager,
-         "k1_launches_equal_over_itrs": [common[0], common[-1]]}))
 
 
 DEMO_ARGV = ["-d", "synthetic", "-c", "any", "-i", "0", "-v", "2",
@@ -1981,12 +1954,11 @@ def _shared_trio(args, device):
     return _TRIOS[key]
 
 
-def _loop_demo(argv, variant, fused=True):
+def _loop_demo(argv, variant):
     """The demo's scene loop through ``distillation_loop`` with the CLI's
     models, scene, views and generator, and ``DistillConfig(sampler_bf16=
     True)`` (``variant`` "bf16_sampler"; the JAX demo CLI has no flag for
-    it) or ``tpu_distill_config(**TPU_DIFFUSION_KW)`` ("tpu"); without
-    ``fused``, ``fused_steps=False``."""
+    it) or ``tpu_distill_config(**TPU_DIFFUSION_KW)`` ("tpu")."""
     from sparsefusion_tpu_torch.cli.demo import (
         load_dataset,
         parse_args,
@@ -2004,8 +1976,7 @@ def _loop_demo(argv, variant, fused=True):
     input_idx = select_input_views(args.val_seed, 0, len(scene),
                                    args.context_views)
     scene.sequence_name = f"any_000_c{len(input_idx)}"
-    kw = dict(max_itr=args.max_itr, start_fusion_step=args.start_fusion,
-              fused_steps=None if fused else False)
+    kw = dict(max_itr=args.max_itr, start_fusion_step=args.start_fusion)
     if variant == "tpu":
         cfg = loop.tpu_distill_config(**kw, **TPU_DIFFUSION_KW)
     else:
@@ -2025,16 +1996,14 @@ def _diffusion_windows(max_itr):
             "fusion": (max(20, max_itr - 4), max_itr - 2)}
 
 
-def diffusion_main_path(variant="f32", max_itr=40, lpips_spec=None,
-                        fused=True):
+def diffusion_main_path(variant="f32", max_itr=40, lpips_spec=None):
     """The full-width diffusion demo, ``max_itr`` iterations, fusion from
     iteration 20: through ``cli/demo.py::main`` (``variant`` "f32", and
     "lpips" with ``--lpips_weights lpips_spec``: the perceptual term and
     the eval's column), or through ``distillation_loop`` with the bf16
     sampler ("bf16_sampler") or the TPU preset ("tpu": occupancy from
     iteration 10, single-pass marching, 4096-ray input and fusion
-    gradient steps).  ``fused``: the card's default, the iterations as
-    CUDA graphs; else the eager loop (``--no_fused``)."""
+    gradient steps), each iteration as CUDA graphs."""
     from sparsefusion_tpu_torch.cli.demo import main as demo_main
 
     sampler_bf16 = variant == "bf16_sampler"
@@ -2047,11 +2016,11 @@ def diffusion_main_path(variant="f32", max_itr=40, lpips_spec=None,
         t0 = time.perf_counter()
         argv = DEMO_ARGV + ["--max_itr", str(max_itr), "--exp_dir", exp_dir]
         if variant == "f32":
-            results = demo_main(argv + ([] if fused else ["--no_fused"]))
+            results = demo_main(argv)
         elif variant == "lpips":
             results = demo_main(argv + ["--lpips_weights", lpips_spec])
         else:
-            results = _loop_demo(argv, variant, fused)
+            results = _loop_demo(argv, variant)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _read_counts()
@@ -2088,8 +2057,7 @@ def diffusion_main_path(variant="f32", max_itr=40, lpips_spec=None,
     label = "diffusion main path" + {"f32": "", "bf16_sampler":
                                      " (bf16 sampler)",
                                      "tpu": " (TPU preset)",
-                                     "lpips": " (LPIPS)"}[variant] \
-        + ("" if fused else " (eager)")
+                                     "lpips": " (LPIPS)"}[variant]
     print(f"{label}: " + json.dumps(stats))
     print(f"{label}: launches {json.dumps(launches)}; "
           f"files {json.dumps(written)}")
@@ -2111,11 +2079,8 @@ def diffusion_main_path(variant="f32", max_itr=40, lpips_spec=None,
     # sampler's stay on cuDNN
     assert launches["conv2d_splitk"] == (
         0 if sampler_bf16 else UNET_CONVS * r["unet_evals"]), launches
-    # the card runs fused by default; --no_fused is the eager loop
-    assert (r["fused"] is not None) == fused, r["fused"]
-    if fused:
-        graphs = loop_stats["graphs"]
-        assert graphs["captures"] > 0 and graphs["replays"] > 0, graphs
+    graphs = loop_stats["graphs"]
+    assert graphs["captures"] > 0 and graphs["replays"] > 0, graphs
     if variant == "tpu":
         # marching from the first grid update on (the preset sets no
         # polish tail), and the fusion gradient steps on ray subsets
@@ -2132,15 +2097,14 @@ def diffusion_main_path(variant="f32", max_itr=40, lpips_spec=None,
         assert r["fusion_subset_steps"] == 0
     if variant == "lpips":
         assert math.isfinite(r["metrics"]["lpips"]), r["metrics"]
-    loop_stats["k1_deltas"] = probe.k1_deltas()
     return launches, stats
 
 
-def tpu_ngp_main_path(fused=True, max_itr=600):
+def tpu_ngp_main_path(max_itr=600):
     """The TPU preset's NGP-only demo at full width through the CLI
     (``--preset tpu --no_diffusion``, 256 px, ``max_itr`` iterations:
     occupancy from iteration 500, so with 600 7 grid updates and 100
-    marching iterations; ``fused`` as in :func:`diffusion_main_path`).
+    marching iterations), each iteration as CUDA graphs.
     K1's 8 x C4 bf16 instance must carry every forward launch."""
     from sparsefusion_tpu_torch.cli.demo import main as demo_main
 
@@ -2156,7 +2120,7 @@ def tpu_ngp_main_path(fused=True, max_itr=600):
             "-d", "synthetic", "-c", "any", "-i", "0", "-v", "2",
             "--image_size", "256", "--max_itr", str(max_itr),
             "--no_diffusion", "--preset", "tpu", "--device", "cuda",
-            "--exp_dir", exp_dir] + ([] if fused else ["--no_fused"]))
+            "--exp_dir", exp_dir])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _read_counts()
@@ -2191,7 +2155,7 @@ def tpu_ngp_main_path(fused=True, max_itr=600):
         "loss_first10": float(losses[:10].mean()),
         "loss_last10": float(losses[-10:].mean()),
         "phase_b_launches": phase_b.k1(), "loop": loop_stats}
-    label = "TPU preset NGP-only main path" + ("" if fused else " (eager)")
+    label = "TPU preset NGP-only main path"
     print(f"{label}: " + json.dumps(stats))
     print(f"{label}: launches {json.dumps(launches)}")
     assert len(losses) == max_itr and np.isfinite(losses).all()
@@ -2205,14 +2169,12 @@ def tpu_ngp_main_path(fused=True, max_itr=600):
     assert launches["grid_encode_fwd_bf16"] == launches["grid_encode_fwd"]
     assert launches["grid_encode_bwd"] > 0
     assert files_ok and np.isfinite(r["renders"]).all()
-    assert (r["fused"] is not None) == fused, r["fused"]
-    loop_stats["k1_deltas"] = probe.k1_deltas()
     return launches, stats, r["ngp_params"]
 
 
-def main_path(fused=True):
-    """The NGP-only demo at full width through the CLI, 100 iterations
-    (``fused`` as in :func:`diffusion_main_path`)."""
+def main_path():
+    """The NGP-only demo at full width through the CLI, 100 iterations,
+    each as a CUDA graph."""
     from sparsefusion_tpu_torch.cli.demo import main as demo_main
     from sparsefusion_tpu_torch.kernels.grid_encode import (
         grid_encode_cuda,
@@ -2229,8 +2191,7 @@ def main_path(fused=True):
         results = demo_main([
             "-d", "synthetic", "-c", "any", "-i", "0", "-v", "2",
             "--image_size", "256", "--max_itr", "100", "--no_diffusion",
-            "--device", "cuda", "--exp_dir", exp_dir]
-            + ([] if fused else ["--no_fused"]))
+            "--device", "cuda", "--exp_dir", exp_dir])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"grid_encode_fwd": grid_encode_cuda.launches,
@@ -2246,7 +2207,7 @@ def main_path(fused=True):
     loop_stats = _probe_stats(r, probe, {"steady": (FETCH - 1, 99)}, peak)
     its = loop_stats["rates"]["steady"]["it_per_s"]
     psnr = r["metrics"]["psnr"]
-    label = "main path" + ("" if fused else " (eager)")
+    label = "main path"
     print(f"{label}: {len(losses)} iterations, {its:.3f} it/s "
           f"(iterations 20-100), wall {wall:.2f} s incl. scene synthesis "
           f"and eval; peak memory {peak[0]:.3f} GiB; launches "
@@ -2263,8 +2224,6 @@ def main_path(fused=True):
         np.isfinite(v).all() for v in npz.values())
     assert r["renders"].shape == (10, 256, 256, 3)
     assert np.isfinite(r["renders"]).all()
-    assert (r["fused"] is not None) == fused, r["fused"]
-    loop_stats["k1_deltas"] = probe.k1_deltas()
     return launches, {"it_per_s": its, "peak_gib": peak[0],
                       "wall_s": wall, "psnr": psnr,
                       "phase_b_launches": phase_b.k1(),
@@ -2509,8 +2468,8 @@ BATCH_RUNS = {
     "diffusion": ["--start_fusion", "19"],
     "tpu": ["--no_diffusion", "--preset", "tpu"],
 }
-# per kind: the graph run's iterations and its eager twin's
-BATCH_ITRS = {"ngp": (100, 100), "diffusion": (40, 25), "tpu": (600, 600)}
+# per kind: the run's iterations (the single-scene run's)
+BATCH_ITRS = {"ngp": 100, "diffusion": 40, "tpu": 600}
 
 
 def _batch_bounds(kind, max_itr):
@@ -2531,15 +2490,13 @@ def _batch_bounds(kind, max_itr):
     return {"all": (FETCH - 1, last)}, {"steady": (59, 79)}
 
 
-def batched_main_path(kind, single, fused=True):
+def batched_main_path(kind, single):
     """SCENES synthetic scenes through the CLI with ``--scene_batch
     SCENES``: one bucket, so one lockstep group (``distill/batched.py``).
     ``kind`` "ngp" (``DistillConfig()``, 100 iterations), "diffusion" (40,
     fusion from 20) or "tpu" (``--preset tpu --no_diffusion``, 600: the
-    batched occupancy grids and marching).  ``fused``: the card's
-    default, each iteration as replayed CUDA graphs over the scene axis;
-    else the eager batched loop (``--no_fused``; the diffusion twin runs
-    25 iterations).  ``single`` is the stats of the same configuration's
+    batched occupancy grids and marching), each iteration as replayed
+    CUDA graphs over the scene axis.  ``single`` is the stats of the same configuration's
     single-scene run (graphs) in this smoke: K1 must launch as often in
     the batched Phase B as there, each launch for all SCENES scenes; K2
     three times a UNet evaluation, each at batch SCENES.  The run is
@@ -2551,7 +2508,7 @@ def batched_main_path(kind, single, fused=True):
 
     from sparsefusion_tpu_torch.cli.demo import main as demo_main
 
-    max_itr = BATCH_ITRS[kind][0 if fused else 1]
+    max_itr = BATCH_ITRS[kind]
     bounds, windows = _batch_bounds(kind, max_itr)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2562,8 +2519,7 @@ def batched_main_path(kind, single, fused=True):
         _reset_counts()
         t0 = time.perf_counter()
         results = demo_main(BATCH_ARGV + BATCH_RUNS[kind] + [
-            "--max_itr", str(max_itr), "--exp_dir", exp_dir]
-            + ([] if fused else ["--no_fused"]))
+            "--max_itr", str(max_itr), "--exp_dir", exp_dir])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _read_counts()
@@ -2586,7 +2542,7 @@ def batched_main_path(kind, single, fused=True):
              "k1_bwd_launches_per_itr": k1["grid_encode_bwd"] / max_itr,
              "single_k1_fwd_launches_per_itr":
                  single["phase_b_launches"]["grid_encode_fwd"]
-                 / BATCH_ITRS[kind][0],
+                 / max_itr,
              "peak_gib": peak, "wall_s": wall,
              "psnr": [x["metrics"]["psnr"] for x in results],
              "ssim": [x["metrics"]["ssim"] for x in results],
@@ -2612,8 +2568,7 @@ def batched_main_path(kind, single, fused=True):
         stats["render_modes"] = r["render_modes"]
         stats["occupied_share"] = [x["occupancy"]["occupied_share"]
                                    for x in results]
-    label = f"scene batch ({kind}, S = {SCENES})" + ("" if fused
-                                                     else " (eager)")
+    label = f"scene batch ({kind}, S = {SCENES})"
     print(f"{label}: " + json.dumps(stats))
     print(f"{label}: launches {json.dumps(launches)}")
     assert written
@@ -2621,20 +2576,16 @@ def batched_main_path(kind, single, fused=True):
         assert len(x["losses"]) == max_itr and np.isfinite(x["losses"]).all()
         assert x["renders"].shape == (10, 256, 256, 3)
         assert np.isfinite(x["renders"]).all()
-    # the card runs graphs by default; --no_fused is the eager loop
-    assert (r["fused"] is not None) == fused, r["fused"]
-    if fused:
-        graphs = loop_stats["graphs"]
-        assert graphs["captures"] > 0 and graphs["replays"] > 0, graphs
-        # no host read between the loss reads
-        assert all(n <= 0 for n in stats["syncs_besides_reads"].values()), \
-            stats["syncs_besides_reads"]
+    graphs = loop_stats["graphs"]
+    assert graphs["captures"] > 0 and graphs["replays"] > 0, graphs
+    # no host read between the loss reads
+    assert all(n <= 0 for n in stats["syncs_besides_reads"].values()), \
+        stats["syncs_besides_reads"]
     # one launch a kernel and operation for all SCENES scenes: as many as
     # the single-scene run's Phase B, each encoding SCENES scenes
     for name in ("grid_encode_fwd", "grid_encode_bwd"):
-        if max_itr == BATCH_ITRS[kind][0]:
-            assert k1[name] == single["phase_b_launches"][name] > 0, (
-                name, k1, single["phase_b_launches"])
+        assert k1[name] == single["phase_b_launches"][name] > 0, (
+            name, k1, single["phase_b_launches"])
         assert k1[f"{name}_scenes"] == SCENES * k1[name] > 0, k1
     if kind == "diffusion":
         assert launches["imagen_attention"] == 3 * r["unet_evals"] > 0
@@ -2647,20 +2598,7 @@ def batched_main_path(kind, single, fused=True):
         assert r["render_modes"] == {"two_phase": 500,
                                      "march": max_itr - 500}
         assert launches["grid_encode_fwd_bf16"] == launches["grid_encode_fwd"]
-    loop_stats["k1_deltas"] = probe.k1_deltas()
     return launches, k1, stats
-
-
-def batched_pair(kind, single):
-    """A batched demo as graphs and its eager twin, in one line: the two
-    runs' measurements and K1's launches equal in each iteration both
-    ran.  Returns the graph run's launches, its Phase B K1 counts and both
-    runs' stats."""
-    launches, k1, stats = batched_main_path(kind, single)
-    _, _, eager = batched_main_path(kind, single, fused=False)
-    _compare_pair(f"scene batch ({kind}, S = {SCENES})", stats["loop"],
-                  eager["loop"])
-    return launches, k1, {"graphs": stats, "eager": eager}
 
 
 TRAIN_TINY = ["-c", "any", "-d", "synthetic", "--preset", "tiny",
@@ -3004,17 +2942,26 @@ def small_graph_step_check(compute_dtype="float32"):
 class _EagerTrainStep:
     """The eager step in the train CLI's place of the captured one (the
     smoke's comparison): the host batch copied to the card, the depth
-    range as host floats, the guard read on the host."""
+    range as host floats, the guard read on the host.  Each call is a
+    ``train/step`` unit, as a captured step's is: the rates read the
+    units finished before each loss read."""
 
     def __init__(self, step, generator):
         self.step, self.generator = step, generator
+        self.calls = 0
 
     def __call__(self, batch):
+        from sparsefusion_tpu_torch.utils import spans
+
         dev = self.generator.device
-        moved = {k: ([c.to(dev) for c in v] if k.endswith(("cam", "cams"))
-                     else v if k == "depth_range" else v.to(dev))
-                 for k, v in batch.items()}
-        return torch.stack(self.step(moved, self.generator))
+        with spans.unit("train/step", self.calls):
+            moved = {k: ([c.to(dev) for c in v]
+                         if k.endswith(("cam", "cams"))
+                         else v if k == "depth_range" else v.to(dev))
+                     for k, v in batch.items()}
+            out = torch.stack(self.step(moved, self.generator))
+        self.calls += 1
+        return out
 
     def stats(self):
         return None
@@ -4025,45 +3972,32 @@ def main(argv=None) -> int:
     small_diffusion_steps_check(sampler_bf16=True)
     small_batched_steps_check()
     _mark("steps card vs CPU")
-    fused_check = fused_loop_card_check()
-    _mark("fused loop vs eager loop")
+    fused_loop_card_check()
+    _mark("graphs vs uncaptured programs")
     small_occupancy_steps_check(occupancy_card_check())
     _mark("occupancy card vs CPU")
     ngp_launches, ngp_stats, ngp_params = main_path()
-    _, ngp_eager, _ = main_path(fused=False)
-    _compare_pair("NGP-only demo", ngp_stats["loop"], ngp_eager["loop"])
     tpu_ngp_launches, tpu_ngp_stats, tpu_ngp_params = tpu_ngp_main_path()
-    _, tpu_ngp_eager, _ = tpu_ngp_main_path(fused=False)
-    _compare_pair("TPU preset NGP-only demo", tpu_ngp_stats["loop"],
-                  tpu_ngp_eager["loop"])
-    _mark("NGP-only demos, fused and eager")
+    _mark("NGP-only demos")
     # per kind: the whole run's launches, and K1's in Phase B (every one
     # of them scene-batched)
     batch_launches, batch_k1 = {}, {}
-    batch_launches["ngp"], batch_k1["ngp"], _ = batched_pair("ngp",
-                                                             ngp_stats)
-    batch_launches["tpu"], batch_k1["tpu"], _ = batched_pair("tpu",
-                                                             tpu_ngp_stats)
-    _mark("scene-batched NGP-only demos, graphs and eager")
+    batch_launches["ngp"], batch_k1["ngp"], _ = batched_main_path(
+        "ngp", ngp_stats)
+    batch_launches["tpu"], batch_k1["tpu"], _ = batched_main_path(
+        "tpu", tpu_ngp_stats)
+    _mark("scene-batched NGP-only demos")
     launches, diffusion_stats = diffusion_main_path()
-    # the eager twins at less depth: 10 and 5 fusion iterations
-    _, diffusion_eager = diffusion_main_path(max_itr=30, fused=False)
-    _compare_pair("f32 diffusion demo", diffusion_stats["loop"],
-                  diffusion_eager["loop"])
     # 30 iterations: 10 fusion iterations where the others run 20, which
     # keeps the whole run within the time it took before the TPU preset's
     # paths were added
     bf16_launches, bf16_stats = diffusion_main_path("bf16_sampler",
                                                     max_itr=30)
-    _, bf16_eager = diffusion_main_path("bf16_sampler", max_itr=25,
-                                        fused=False)
-    _compare_pair("bf16 sampler diffusion demo", bf16_stats["loop"],
-                  bf16_eager["loop"])
     tpu_launches, _ = diffusion_main_path("tpu")
-    _mark("diffusion demos, fused and eager")
+    _mark("diffusion demos")
     batch_launches["diffusion"], batch_k1["diffusion"], _ = \
-        batched_pair("diffusion", diffusion_stats)
-    _mark("scene-batched diffusion demo, graphs and eager")
+        batched_main_path("diffusion", diffusion_stats)
+    _mark("scene-batched diffusion demo")
     vgg, lin = _lpips_state_dicts()
     lpips_card_check(vgg, lin)
     with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_lpips_") as d:

@@ -26,10 +26,10 @@ the scenes by (frame count, image size, context size), chunks each
 bucket to N, and distills each chunk of two or more in lockstep
 (``distill/batched.py``), a chunk of one sequentially; the JAX demo's
 rule that sets ``scene_batch`` to the local chip count does not apply
-(one card a process).  On a CUDA device each iteration runs as CUDA
-graphs of the JAX loops' programs (``distill/fused.py``), one scene's or
-a scene batch's; ``--no_fused`` runs them eagerly
-(``DistillConfig.fused_steps=False``), as the JAX demo's flag does.
+(one card a process).  Each iteration runs as the JAX loops' programs
+(``distill/fused.py``), one scene's or a scene batch's, on a CUDA device
+as CUDA graphs; ``--no_fused`` (``DistillConfig.fused_steps=False``)
+runs the same programs uncaptured, the JAX demo's flag's counterpart.
 ``-g`` / ``-p`` are accepted and change nothing.  With ``--device cuda``
 and no CUDA device the demo raises; it never continues on the CPU.
 ``--prior zero123`` puts Zero-1-to-3's UNet in the fusion step in place
@@ -93,10 +93,10 @@ def parse_args(argv=None):
                         "(occupancy grid, single-pass marching); 'auto' = "
                         "'tpu' on a TPU backend only, so 'reference'")
     p.add_argument("--no_fused", action="store_true",
-                   help="disable the fused per-iteration programs, CUDA "
-                        "graphs on the card (DistillConfig.fused_steps; "
-                        "default auto: on for CUDA, off on the CPU), in "
-                        "the sequential loop and in scene batches")
+                   help="run the per-iteration programs uncaptured "
+                        "instead of as CUDA graphs on the card "
+                        "(DistillConfig.fused_steps=False), in the "
+                        "sequential loop and in scene batches")
     p.add_argument("--scene_batch", type=int, default=1,
                    help="scenes distilled in lockstep on one device")
     p.add_argument("--prior", type=str, default="vldm",

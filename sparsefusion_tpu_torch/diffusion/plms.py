@@ -105,6 +105,12 @@ def eps_fn(ddpm: DDPM, denoise_fn: Callable,
     return eval_eps
 
 
+def cond_map(fn: Callable, cond):
+    """``fn`` on the sampler's conditioning: a tensor, or each tensor of a
+    tuple (Zero123's token and concat latent)."""
+    return tuple(map(fn, cond)) if isinstance(cond, tuple) else fn(cond)
+
+
 def _x_prev_from_eps(ddpm: DDPM, x, t, t_next, eps, noise):
     """x_start from eps -> clip -> q_posterior -> noisy step (t, t_next
     0-d tensors of x's type)."""

@@ -14,16 +14,15 @@ occupancy grids' update, and the sampler at UNet batch S.  The step
 bodies are the sequential loop's (``loop.SceneSteps``), written over the
 scene axis, so the two paths cannot drift.
 
-Dispatch follows ``DistillConfig.fused_steps`` as in the sequential
-loop: on a CUDA device (None) each iteration runs as the programs of
-``distill/fused.py`` over the scene axis, each captured once into a CUDA
-graph and replayed, with no host read between loss reads; with
-``fused_steps=False`` (``--no_fused``), and on the CPU by default, the
-same steps run op by op.  Both gather each iteration's cameras, targets
-and features on the device from (S,) index tensors
-(``core/cameras.py::pick_cameras``, the JAX loop's ``_pick_cam``).  The
-occupancy grids' update runs eagerly between iterations and is copied
-into the one bitfield buffer that the graphs read.
+Each iteration runs as the programs of ``distill/fused.py`` over the
+scene axis, as in the sequential loop: on a CUDA device each is captured
+once into a CUDA graph and replayed, with no host read between loss
+reads, unless ``fused_steps`` is False (``--no_fused``), which runs them
+uncaptured, as on the CPU.  They gather each iteration's cameras,
+targets and features on the device from (S,) index tensors
+(``core/cameras.py::pick_per_scene``, the JAX loop's ``_pick_cam``).
+The occupancy grids' update runs eagerly between iterations and is
+copied into the one bitfield buffer that the graphs read.
 
 Schedule semantics match the sequential loop (iteration count, fusion /
 bootstrap switch, occupancy cadence, marching and the polish tail);
@@ -60,8 +59,6 @@ import torch
 from sparsefusion_tpu_torch.core.cameras import (
     concat_cameras,
     get_relative_cameras,
-    pick_cameras,
-    pick_per_scene,
     stack_cameras,
 )
 from sparsefusion_tpu_torch.data.contract import SceneData
@@ -95,30 +92,6 @@ def _check_stackable(scenes: Sequence[SceneData], input_idx_list) -> None:
                 " — bucket scenes by (n_frames, image_size) first")
     if len({len(idx) for idx in input_idx_list}) != 1:
         raise ValueError("batched distillation needs equal context sizes")
-
-
-def _eager_iteration(steps, vc, cams_vox, rgb, mask, cache, bitfield,
-                     generator, bi: torch.Tensor, ci: Optional[torch.Tensor],
-                     mt: Optional[float], fusion: bool):
-    """One batched iteration, op by op: the input step on each scene's
-    view ``bi[s]`` and, with the cache, the bootstrap or fusion step on
-    its cached camera ``ci[s]``; the cameras and targets gathered on the
-    device as the graphs gather them.  Returns the (S,) losses (the
-    second None without the cache)."""
-    loss = steps.input_step(
-        vc, pick_cameras(cams_vox, bi), pick_per_scene(rgb, bi),
-        None if mask is None else pick_per_scene(mask, bi), generator,
-        bitfield=bitfield)
-    if ci is None:
-        return loss, None
-    cam_f = pick_cameras(cache["cameras_vox"], ci)
-    if fusion:
-        return loss, steps.fusion_step(
-            vc, cam_f, pick_per_scene(cache["features"], ci), mt,
-            generator, bitfield=bitfield)
-    return loss, steps.bootstrap_step(
-        vc, cam_f, pick_per_scene(cache["eft_images"], ci), generator,
-        bitfield=bitfield)
 
 
 def batched_distillation_loop(
@@ -209,13 +182,8 @@ def batched_distillation_loop(
         occupancy = {"update_itrs": [],
                      "occupied_share": [[] for _ in range(S)]}
 
-    fused = cfg.fused_steps
-    if fused is None:
-        fused = device.type == "cuda"
-    programs = None
-    if fused:
-        programs = FusedIterations(steps, generator, cams_vox, rgb, mask,
-                                   cache, bitfield)
+    programs = FusedIterations(steps, generator, cams_vox, rgb, mask, cache,
+                               bitfield)
 
     host_rngs = [np.random.RandomState(17 + 1013 * s) for s in range(S)]
     mt_rng = np.random.RandomState(29)
@@ -268,16 +236,7 @@ def batched_distillation_loop(
             if fusion:
                 mt = min(float(mt_rng.uniform()), 0.99)
                 fusion_subset_steps += int(steps.subsample_fusion)
-            if programs is not None:
-                loss, floss = programs.iteration(itr, vc, bi, ci, mt,
-                                                 fusion)
-            else:
-                loss, floss = _eager_iteration(
-                    steps, vc, cams_vox, rgb, mask, cache, bitfield,
-                    generator, torch.as_tensor(bi, device=device),
-                    None if ci is None else torch.as_tensor(ci,
-                                                            device=device),
-                    mt, fusion)
+            loss, floss = programs.iteration(itr, vc, bi, ci, mt, fusion)
             loss_log[0, itr].copy_(loss)
             if floss is not None:
                 loss_log[1, itr].copy_(floss)
@@ -311,8 +270,9 @@ def batched_distillation_loop(
                            if models is not None else 0),
             # the recorder's spans of the batch (distill/loop.py's)
             "spans": batch_spans,
-            # the graphs' warm-ups, captures and replays (the batch's)
-            "fused": None if programs is None else programs.stats(),
+            # the programs' graphs, warm-ups, captures and replays (the
+            # batch's)
+            "fused": programs.stats(),
             "occupancy": scene_occupancy,
             "render_modes": render_modes,
             "fusion_subset_steps": fusion_subset_steps,

@@ -20,9 +20,9 @@ package's:
   its front and back programs; here the back graph's backward runs
   through the front graph's render, whose autograd graph (built at the
   front's capture) stays alive with its saved tensors in the shared
-  pool, so a fusion iteration renders once, as the eager step does.
-  With ``fusion_rays`` the gradient step renders its ray subset in the
-  back program, as in the eager step.
+  pool, so a fusion iteration renders once, as
+  ``SceneSteps.fusion_step`` does.  With ``fusion_rays`` the gradient
+  step renders its ray subset in the back program, as that step does.
 
 The same programs run one scene (``distill/loop.py``) or S scenes in
 lockstep on an ``NGPFieldStack`` (``distill/batched.py``): then the
@@ -45,13 +45,16 @@ three last epsilons, the times from ``max_thres``, the step index, the
 fusion weight) lives in buffers made at a program's first run, which is
 eager.
 
-The graphs run through ``utils/graphs.py::GraphRunner``, which the
-train step's graphs share.  On a CUDA device a key's first run is
+Every iteration of both loops runs through these programs, on every
+device; ``DistillConfig.fused_steps`` (and the demo's ``--no_fused``)
+only says whether they are captured.  The graphs run through
+``utils/graphs.py::GraphRunner``, which the train step's graphs share.
+On a CUDA device, unless ``fused_steps`` is False, a key's first run is
 eager, on a side stream: it is the iteration's real work and the
 warm-up that builds the kernels, the optimizer's state and the
 libraries' handles.  Its second run captures
 (the loop's generator registered with the graph, so that every replay
-draws fresh numbers, in the order the eager steps draw them) and then
+draws fresh numbers, in the order the uncaptured runs draw them) and then
 replays; later runs replay.  Each graph has a memory pool of its own:
 with one pool shared by all graphs, an eager warm-up run between the
 front program's replay and the back program's overwrote the front's
@@ -60,10 +63,10 @@ pool a graph, nothing outside a graph writes its memory.  A capture or
 replay that fails raises: there is no eager fallback.  The
 kernels' launch counters and the UNet evaluations count in Python, so
 each graph records what its capture counted and adds it at each
-replay.  Elsewhere (the CPU) every run is eager, which is how the
-tests hold the fused structure against the unfused loops.  Each
-program's run is the span recorder's ``graph/<key>`` span, with the
-models', renders' and optimizer's spans under it; as a graph, those are
+replay.  Elsewhere (the CPU, or ``fused_steps=False``) every run is
+eager: the same programs, uncaptured.  Each program's run is the span
+recorder's ``graph/<key>`` span, with the models', renders' and
+optimizer's spans under it; as a graph, those are
 captured once as its template and their device stamps replayed
 (``utils/spans.py``).
 """
@@ -78,6 +81,7 @@ import torch
 
 from sparsefusion_tpu_torch.core.cameras import Cameras, pick_per_scene
 from sparsefusion_tpu_torch.diffusion.plms import (
+    cond_map,
     eps_fn,
     host_schedule,
     plms_prologue,
@@ -85,7 +89,6 @@ from sparsefusion_tpu_torch.diffusion.plms import (
     plms_step0,
     plms_tail_step,
 )
-from sparsefusion_tpu_torch.distill.loop import cond_map
 from sparsefusion_tpu_torch.utils import spans
 from sparsefusion_tpu_torch.utils.graphs import (
     GraphRunner,
@@ -118,8 +121,10 @@ class FusedIterations:
         self.scene_mask = scene_mask
         self.bitfield = bitfield
         dev = scene_rgb.device
+        # captured on a CUDA device unless fused_steps is False
         self.runner = GraphRunner(dev, generator,
-                                  launch_counters(self.models))
+                                  launch_counters(self.models),
+                                  graphs=self.cfg.fused_steps is not False)
         # the iteration's host draws as device indices, one a scene (the
         # input view, the cached camera), and one float64 noise level
         n = self.scene_axis[0] if self.scene_axis else 1

@@ -38,15 +38,16 @@ step renders the full grid (``fusion_rays`` is then not used, as in the
 JAX package); Phase C adds an ``lpips`` column.  The steps also run S
 scenes at once on an ``NGPFieldStack`` (``distill/batched.py``).
 
-The JAX package's dispatch options: ``fused_steps`` (None: on a CUDA
-device, off on the CPU, as the JAX package turns it off on its CPU)
-runs each iteration as the JAX loop's programs, an input step, a
-bootstrap iteration, or a fusion iteration's front, PLMS step 0, PLMS
-tail steps and back (``distill/fused.py``), each captured once into a
-CUDA graph and replayed; on the CPU (``fused_steps=True``) the same
-programs run eagerly.  The sampler in them is the counterpart of
+Every iteration runs as the JAX loop's fused programs
+(``distill/fused.py``): an input step, a bootstrap iteration, or a
+fusion iteration's front, PLMS step 0, PLMS tail steps and back, built
+from this module's step pieces.  The JAX package's dispatch option
+``fused_steps`` says only whether they are captured: on a CUDA device
+each is captured once into a CUDA graph and replayed, unless it is
+False (``--no_fused``), which runs the same programs uncaptured, as
+every run is on the CPU.  The sampler in them is the counterpart of
 ``plms_sample_host`` with ``scan_tail``, which ``plms_host_loop`` and
-``plms_scan_tail`` select in the JAX package; the port's eager sampler
+``plms_scan_tail`` select in the JAX package; the port's sampler
 (``diffusion/plms.py::plms_sample``) is that loop too, so those two
 options change nothing here.  ``loss_fetch_every`` sets how often the
 losses, kept on the device, are read: in one copy every that many
@@ -86,7 +87,8 @@ from sparsefusion_tpu_torch.core.cameras import (
 from sparsefusion_tpu_torch.core.paths import get_interpolated_path
 from sparsefusion_tpu_torch.core.rays import grid_ray_bundle
 from sparsefusion_tpu_torch.data.contract import SceneData
-from sparsefusion_tpu_torch.diffusion.plms import plms_sample
+from sparsefusion_tpu_torch.diffusion.plms import cond_map, plms_sample
+from sparsefusion_tpu_torch.distill.fused import FusedIterations
 from sparsefusion_tpu_torch.nn.ngp import (
     NGPConfig,
     NGPField,
@@ -164,8 +166,8 @@ class DistillConfig:
     # recompute each render chunk in the backward pass instead of keeping
     # every chunk's activations (torch.utils.checkpoint)
     remat: bool = True
-    # the iterations as the fused programs of distill/fused.py (CUDA
-    # graphs on a CUDA device); None: on CUDA, off on the CPU
+    # the fused programs of distill/fused.py captured as CUDA graphs on a
+    # CUDA device (None or True); False: run uncaptured
     fused_steps: Optional[bool] = None
 
     def __post_init__(self):
@@ -539,12 +541,6 @@ class SceneSteps:
                             max_thres, generator, draws, bitfield)
 
 
-def cond_map(fn: Callable, cond):
-    """``fn`` on the sampler's conditioning: a tensor, or each tensor of a
-    tuple (Zero123's token and concat latent)."""
-    return tuple(map(fn, cond)) if isinstance(cond, tuple) else fn(cond)
-
-
 def make_scene_step_fns(field: NGPField, cfg: DistillConfig,
                         optimizer: NGPOptimizer, render_hw: int,
                         image_size: int, lpips_fn=None,
@@ -721,19 +717,12 @@ def distillation_loop(
     def occ_density_fn(pts):
         return field(pts)[0]
 
-    fused = cfg.fused_steps
-    if fused is None:
-        fused = device.type == "cuda"
-    programs = None
-    if fused:
-        from sparsefusion_tpu_torch.distill.fused import FusedIterations
-
-        # the programs gather the cached cameras from one (M,) Cameras
-        cache = None if feature_cache is None else dict(
-            feature_cache,
-            cameras_vox=concat_cameras(feature_cache["cameras_vox"]))
-        programs = FusedIterations(steps, generator, scene_vox, scene_rgb,
-                                   scene_mask, cache, bitfield)
+    # the programs gather the cached cameras from one (M,) Cameras
+    cache = None if feature_cache is None else dict(
+        feature_cache,
+        cameras_vox=concat_cameras(feature_cache["cameras_vox"]))
+    programs = FusedIterations(steps, generator, scene_vox, scene_rgb,
+                               scene_mask, cache, bitfield)
 
     host_rng = np.random.RandomState(17)
     # the losses stay on the device and are read in one copy every
@@ -776,25 +765,7 @@ def distillation_loop(
                 mt = min(float(host_rng.uniform()), 0.99)
             fusion = use_diffusion and itr > cfg.start_fusion_step
             fusion_subset_steps += int(fusion and steps.subsample_fusion)
-            if programs is not None:
-                loss, floss = programs.iteration(itr, vc, bi, ci, mt, fusion)
-            else:
-                loss = steps.input_step(
-                    vc, get_camera_slice(scene_vox, [bi]), scene_rgb[bi],
-                    scene_mask[bi] if scene_mask is not None else None,
-                    generator, bitfield=bitfield)
-                floss = None
-                if fusion:
-                    floss = steps.fusion_step(
-                        vc, feature_cache["cameras_vox"][ci],
-                        cond_map(lambda f: f[ci], feature_cache["features"]),
-                        mt, generator,
-                        bitfield=bitfield)
-                elif use_diffusion:
-                    floss = steps.bootstrap_step(
-                        vc, feature_cache["cameras_vox"][ci],
-                        feature_cache["eft_images"][ci], generator,
-                        bitfield=bitfield)
+            loss, floss = programs.iteration(itr, vc, bi, ci, mt, fusion)
             loss_log[0, itr].copy_(loss)
             if floss is not None:
                 loss_log[1, itr].copy_(floss)
@@ -827,9 +798,9 @@ def distillation_loop(
         # warmup/<key> and capture/<key>) always, the iterations' while
         # recording (utils/spans.py)
         "spans": spans.snapshot(first_span),
-        # with cfg.fused_steps: the fused programs' warm-ups, captures
-        # (key, iteration) and replays (distill/fused.py)
-        "fused": None if programs is None else programs.stats(),
+        # the fused programs' graphs (false when uncaptured), warm-ups,
+        # captures (key, iteration) and replays (distill/fused.py)
+        "fused": programs.stats(),
         # with cfg.use_occupancy: the iterations before which the grid was
         # updated (each an ``occupancy_update`` span) and the occupied
         # share of the bitfield after it

@@ -98,8 +98,8 @@ class _CumprodNonzero(torch.autograd.Function):
     with the gradient PyTorch takes for such factors: the reversed cumsum
     of output x grad, over the factors.  PyTorch's own backward first
     asks the device whether any factor is 0 (a read on the host at every
-    backward), which stalls the eager loop and cannot be captured in a
-    CUDA graph."""
+    backward), which stalls an uncaptured loop and cannot be captured in
+    a CUDA graph."""
 
     @staticmethod
     def forward(ctx, x):

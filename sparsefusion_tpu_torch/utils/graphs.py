@@ -10,7 +10,8 @@ and of the train step (``train/fused.py``) share.
   eager runs draw them) and replays it; later runs replay.  Each graph
   has a memory pool of its own: nothing outside a graph writes its
   memory.  A capture or replay that fails raises: there is no eager
-  fallback.  Elsewhere (the CPU) every run is eager.
+  fallback.  Elsewhere (the CPU), or when its caller turns capture off,
+  every run is eager.
 * :func:`launch_counters`: the kernels' launch counters and the UNet
   evaluations count in Python, so each graph records what its capture
   counted and adds it at each replay.
@@ -68,15 +69,16 @@ def capturing() -> bool:
 
 
 class GraphRunner:
-    """Runs programs under static keys: on a CUDA device eagerly the first
-    time, captured into a CUDA graph the second, replayed from then on;
-    on any other device eagerly every time.  ``captures`` lists each
-    capture's key and the caller's ``itr``; its host seconds are the
-    recorder's ``capture/<key>`` span."""
+    """Runs programs under static keys: with ``graphs`` on a CUDA device
+    eagerly the first time, captured into a CUDA graph the second,
+    replayed from then on; without ``graphs`` or on any other device
+    eagerly every time.  ``captures`` lists each capture's key and the
+    caller's ``itr``; its host seconds are the recorder's
+    ``capture/<key>`` span."""
 
     def __init__(self, device: torch.device, generator: torch.Generator,
-                 counters: List[Tuple[object, str]]):
-        self.graphs = device.type == "cuda"
+                 counters: List[Tuple[object, str]], graphs: bool = True):
+        self.graphs = graphs and device.type == "cuda"
         self.device = device
         self.generator = generator
         self.counters = counters

@@ -539,8 +539,9 @@ def test_unet_forward_through_k4_matches_cudnn(unet, convs, full_f32):
     """One batch-1 evaluation as the sampler makes it: every convolution
     through K4, counted once a call by the launch counter and the spans'
     ``k4_launches``; the same evaluation with a gradient
-    (cuDNN) agrees within f32 rounding (relative 1e-4, as the fused
-    loop's losses are held to the eager loop's in ``chip_smoke.py``)."""
+    (cuDNN) agrees within f32 rounding (relative 1e-4, as the captured
+    loop's losses are held to the uncaptured programs' in
+    ``chip_smoke.py``)."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = _unet(gen, unet)

@@ -1,15 +1,16 @@
 """The scene-batched loop's programs (``distill/fused.py`` over a scene
 axis, ``distill/batched.py``), on the CPU.
 
-On the CPU the batched programs run eagerly (``fused_steps=True``): the
-same functions that a CUDA device captures into graphs.
+On the CPU the batched programs run uncaptured: the same functions that
+a CUDA device captures into graphs.
 
-* The batched fused loop against the batched eager loop, S = 2, in the
-  three cases of ``test_torch_distill_fused.py::LOOP_CASES``: diffusion,
-  photometric only, and occupancy marching with ray subsets.  They must
-  be equal exactly: both gather the iteration's cameras and targets on
-  the device from the same (S,) indices and make the same draws in the
-  same order.
+* The batched loop against the same loop with each iteration composed of
+  ``SceneSteps``' step functions over the scene axis (the unfused
+  batched loop, written here), S = 2, in the three cases of
+  ``test_torch_distill_fused.py::LOOP_CASES``: diffusion, photometric
+  only, and occupancy marching with ray subsets.  They must be equal
+  exactly: both gather the iteration's cameras and targets on the device
+  from the same (S,) indices and make the same draws in the same order.
 * Each batched program of one fusion iteration (front, PLMS step 0, the
   tail at Adams-Bashforth orders 1-3, back) against the JAX batched
   loop's counterpart, composed as ``sparsefusion_tpu/distill/
@@ -22,8 +23,8 @@ same functions that a CUDA device captures into graphs.
   (Frobenius, relative) per parameter and scene.
 * The device camera gather (``core/cameras.py::pick_cameras``) equals
   ``get_camera_slice`` per scene, bit for bit.
-* ``--scene_batch 2 --no_fused`` sets ``fused_steps=False`` and reaches
-  the eager batched loop.
+* ``--scene_batch 2 --no_fused`` sets ``fused_steps=False``, which
+  builds the batch's programs uncaptured.
 """
 import functools
 
@@ -53,6 +54,7 @@ from sparsefusion_tpu_torch.cli import demo
 from sparsefusion_tpu_torch.core import cameras as tcam
 from sparsefusion_tpu_torch.data.synthetic import make_synthetic_scene
 from sparsefusion_tpu_torch.distill import batched as tbatched
+from sparsefusion_tpu_torch.distill import fused as tfused
 from sparsefusion_tpu_torch.distill import loop as tloop
 from sparsefusion_tpu_torch.distill.fused import FusedIterations
 from sparsefusion_tpu_torch.models import build_models, narrow_model_configs
@@ -60,6 +62,7 @@ from sparsefusion_tpu_torch.nn.ngp import NGPConfig, NGPFieldStack
 from sparsefusion_tpu_torch.render.volume import VolumeRendererConfig
 from tests.test_torch_distill_fused import (
     LOOP_CASES,
+    UNCAPTURED,
     _nchw,
     _replay_chunk_draws,
     _trio,
@@ -72,9 +75,37 @@ HW, IMAGE_SIZE = 16, 32
 S = 2
 
 
-# ---- the batched fused loop against the batched eager loop -----------
+# ---- the batched loop against the unfused batched loop ---------------
 
-def _run_batched(fused, use_diffusion, **overrides):
+def _unfused_iteration(self, itr, vc, bi, ci=None, mt=None, fusion=False):
+    """The batched ``FusedIterations.iteration``'s reference: the input
+    step on each scene's view ``bi[s]`` and, with the cache, the
+    bootstrap or fusion step on its cached camera ``ci[s]``, each one of
+    ``SceneSteps``' step functions over the scene axis, the cameras and
+    targets gathered on the device from (S,) indices."""
+    steps, gen, bitfield = self.steps, self.generator, self.bitfield
+    bi = torch.as_tensor(bi)
+    loss = steps.input_step(
+        vc, tcam.pick_cameras(self.scene_vox, bi),
+        tcam.pick_per_scene(self.scene_rgb, bi),
+        None if self.scene_mask is None else
+        tcam.pick_per_scene(self.scene_mask, bi), gen, bitfield=bitfield)
+    if ci is None:
+        return loss, None
+    ci = torch.as_tensor(ci)
+    cam = tcam.pick_cameras(self.cams_f, ci)
+    if fusion:
+        return loss, steps.fusion_step(
+            vc, cam, tcam.pick_per_scene(self.features, ci), mt, gen,
+            bitfield=bitfield)
+    return loss, steps.bootstrap_step(
+        vc, cam, tcam.pick_per_scene(self.eft_images, ci), gen,
+        bitfield=bitfield)
+
+
+def _run_batched(unfused, use_diffusion, **overrides):
+    """The batched loop on the tiny models; with ``unfused``, each
+    iteration through :func:`_unfused_iteration`."""
     models = build_models(torch.Generator().manual_seed(0), "cpu",
                           **narrow_model_configs())
     scenes = [make_synthetic_scene(n_views=3, image_size=IMAGE_SIZE, seed=s)
@@ -82,28 +113,29 @@ def _run_batched(fused, use_diffusion, **overrides):
     cfg = tloop.DistillConfig(
         max_itr=4, start_fusion_step=1, n_aug_cameras=2, plms_steps=4,
         num_steps=8, upsample_steps=8, max_ray_batch=256,
-        ngp=NGPConfig(**NGP_KW), fused_steps=fused, **overrides)
-    return tbatched.batched_distillation_loop(
-        models, scenes, [[0, 1], [1, 2]], cfg,
-        torch.Generator().manual_seed(1), use_diffusion=use_diffusion,
-        verbose=False)
+        ngp=NGPConfig(**NGP_KW), **overrides)
+    with pytest.MonkeyPatch.context() as mp:
+        if unfused:
+            mp.setattr(FusedIterations, "iteration", _unfused_iteration)
+        return tbatched.batched_distillation_loop(
+            models, scenes, [[0, 1], [1, 2]], cfg,
+            torch.Generator().manual_seed(1), use_diffusion=use_diffusion,
+            verbose=False)
 
 
 @pytest.mark.parametrize("case", sorted(LOOP_CASES))
 def test_batched_fused_loop_equals_batched_eager_loop(monkeypatch, case):
     """2 bootstrap and 2 fusion iterations of S = 2 scenes (4 input steps
-    without the diffusion arm): every scene's losses, parameters and
-    renders, bit for bit."""
+    without the diffusion arm), against the unfused batched loop: every
+    scene's losses, parameters and renders, bit for bit."""
     monkeypatch.setattr(tloop, "OCC_GRID_SIZE", 32)
     monkeypatch.setattr(tbatched, "OCC_GRID_SIZE", 32)
     use_diffusion, overrides = LOOP_CASES[case]
-    ref = _run_batched(False, use_diffusion, **overrides)
-    fus = _run_batched(True, use_diffusion, **overrides)
+    ref = _run_batched(True, use_diffusion, **overrides)
+    fus = _run_batched(False, use_diffusion, **overrides)
     assert len(ref) == len(fus) == S
     for r, f in zip(ref, fus):
-        assert r["fused"] is None
-        assert f["fused"] == {"graphs": False, "warmups": 0,
-                              "captures": [], "replays": 0}
+        assert r["fused"] == f["fused"] == UNCAPTURED
         assert len(f["losses"]) == 4
         assert f["losses"] == r["losses"]
         assert f["fusion_losses"] == r["fusion_losses"]
@@ -149,48 +181,48 @@ def test_device_camera_gather_equals_camera_slices():
             assert torch.equal(images[s], torch.as_tensor(scenes[s].images[i]))
 
 
-# ---- --no_fused reaches the eager batched loop ------------------------
+# ---- --no_fused builds the batch's programs uncaptured ---------------
 
-def test_scene_batch_no_fused_runs_the_eager_batched_loop(monkeypatch,
-                                                          tmp_path):
-    """``--scene_batch 2 --no_fused``: ``fused_steps=False``, every
-    iteration through the eager batched iteration and no programs made;
-    without the flag ``fused_steps`` stays None (graphs on a CUDA
-    device)."""
-    seen, eager_calls, programs = [], [], []
+def test_scene_batch_no_fused_builds_uncaptured_programs(monkeypatch,
+                                                         tmp_path):
+    """``--scene_batch 2 --no_fused``: ``fused_steps=False``, one set of
+    programs for the batch whose ``GraphRunner`` is asked for no graphs,
+    every iteration through them; without the flag ``fused_steps`` stays
+    None and the runner is asked for graphs (which it captures on a CUDA
+    device only)."""
+    seen, asked, iterations = [], [], []
     loop = tbatched.batched_distillation_loop
-    eager = tbatched._eager_iteration
+    runner, iteration = tfused.GraphRunner, FusedIterations.iteration
 
     def batched(models, scenes, input_idx_list, cfg, generator, **kw):
         seen.append(cfg.fused_steps)
         return loop(models, scenes, input_idx_list, cfg, generator, **kw)
 
-    def eager_iteration(*args, **kw):
-        eager_calls.append(1)
-        return eager(*args, **kw)
+    def graph_runner(*args, graphs=True, **kw):
+        asked.append(graphs)
+        return runner(*args, graphs=graphs, **kw)
 
-    class Programs(FusedIterations):
-        def __init__(self, *args, **kw):
-            programs.append(1)
-            super().__init__(*args, **kw)
+    def counted(self, *args, **kw):
+        iterations.append(1)
+        return iteration(self, *args, **kw)
 
     def evaluate_scene(field, scene, *args, **kw):     # Phase C stubbed
         return {"ngp_params": {}, "metrics": {"psnr": 0.0}}
 
     monkeypatch.setattr(tbatched, "batched_distillation_loop", batched)
-    monkeypatch.setattr(tbatched, "_eager_iteration", eager_iteration)
-    monkeypatch.setattr(tbatched, "FusedIterations", Programs)
+    monkeypatch.setattr(tfused, "GraphRunner", graph_runner)
+    monkeypatch.setattr(FusedIterations, "iteration", counted)
     monkeypatch.setattr(tbatched, "evaluate_scene", evaluate_scene)
     monkeypatch.setattr(tbatched, "_save_outputs", lambda *a, **k: None)
     argv = ["-d", "synthetic", "-c", "any", "-i", "0,1", "--no_diffusion",
             "--image_size", "16", "--max_itr", "2", "--scene_batch", "2",
             "--device", "cpu", "--exp_dir", str(tmp_path)]
     results = demo.main(argv + ["--no_fused"])
-    assert len(results) == 2 and seen == [False]
-    assert len(eager_calls) == 2 and not programs
-    assert all(r["fused"] is None for r in results)
+    assert len(results) == 2 and seen == [False] and asked == [False]
+    assert len(iterations) == 2
+    assert all(r["fused"] == UNCAPTURED for r in results)
     demo.main(argv)
-    assert seen == [False, None]
+    assert seen == [False, None] and asked == [False, True]
 
 
 # ---- each batched program against the JAX batched loop's --------------

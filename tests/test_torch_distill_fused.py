@@ -1,18 +1,20 @@
-"""The fused loop (``distill/fused.py``: ``DistillConfig.fused_steps``) and
-the losses' read cadence (``loss_fetch_every``), on the CPU.
+"""The loop's programs (``distill/fused.py``) and the losses' read cadence
+(``loss_fetch_every``), on the CPU.
 
-On the CPU the fused programs run eagerly (``fused_steps=True``): the
-same functions that a CUDA device captures into graphs.
+On the CPU the programs run uncaptured: the same functions that a CUDA
+device captures into graphs.
 
-* The fused loop against the unfused loop, the three cases of the JAX
+* The loop against the same loop with each iteration composed of
+  ``SceneSteps``' step functions (the unfused loop, written here: the
+  steps the JAX-parity tests hold), the three cases of the JAX
   package's ``tests/test_distill_fused.py`` on the same tiny models:
   diffusion, photometric only, and occupancy marching with ray subsets.
   They must be equal exactly: the fused programs make the same draws in
   the same order, their sampler computes the times on the device in
   float64 as the host does (``diffusion/plms.py::plms_schedule``) and
   takes one graph per Adams-Bashforth order, so it does the unfused
-  sampler's arithmetic, and the back program renders the grid again with
-  the front's draws, which gives the same image.
+  sampler's arithmetic, and the back program's gradient runs through the
+  front's render, which is the unfused step's single render.
 * Each fused program of a fusion iteration against the JAX loop's
   counterpart (``_fusion_front`` / ``_fusion_back``, composed here as
   ``sparsefusion_tpu/distill/loop.py:712-750`` composes them, and
@@ -62,7 +64,7 @@ from sparsefusion_tpu_torch.cli import demo
 from sparsefusion_tpu_torch.core import cameras as tcam
 from sparsefusion_tpu_torch.data.synthetic import make_synthetic_scene
 from sparsefusion_tpu_torch.diffusion.ddpm import DDPM, DDPMConfig
-from sparsefusion_tpu_torch.diffusion.plms import plms_sample
+from sparsefusion_tpu_torch.diffusion.plms import cond_map, plms_sample
 from sparsefusion_tpu_torch.distill import batched as tbatched
 from sparsefusion_tpu_torch.distill import loop as tloop
 from sparsefusion_tpu_torch.distill.fused import FusedIterations
@@ -90,18 +92,47 @@ LOOP_CASES = {
 }
 
 
-def _run_loop(fused, use_diffusion, **overrides):
+UNCAPTURED = {"graphs": False, "warmups": 0, "captures": [], "replays": 0}
+
+
+def _unfused_iteration(self, itr, vc, bi, ci=None, mt=None, fusion=False):
+    """``FusedIterations.iteration``'s reference: the input step on view
+    ``bi`` and, with the cache, the bootstrap or fusion step on cached
+    camera ``ci`` at noise level ``mt``, each one of ``SceneSteps``' step
+    functions taking its draws from the loop's generator."""
+    steps, gen, bitfield = self.steps, self.generator, self.bitfield
+    loss = steps.input_step(
+        vc, tcam.get_camera_slice(self.scene_vox, [bi]), self.scene_rgb[bi],
+        None if self.scene_mask is None else self.scene_mask[bi], gen,
+        bitfield=bitfield)
+    if ci is None:
+        return loss, None
+    cam = tcam.get_camera_slice(self.cams_f, [ci])
+    if fusion:
+        return loss, steps.fusion_step(
+            vc, cam, cond_map(lambda f: f[ci], self.features), mt, gen,
+            bitfield=bitfield)
+    return loss, steps.bootstrap_step(vc, cam, self.eft_images[ci], gen,
+                                      bitfield=bitfield)
+
+
+def _run_loop(unfused, use_diffusion, **overrides):
+    """The loop on the tiny models; with ``unfused``, each iteration
+    through :func:`_unfused_iteration`."""
     models = build_models(torch.Generator().manual_seed(0), "cpu",
                           **narrow_model_configs())
     scene = make_synthetic_scene(n_views=3, image_size=IMAGE_SIZE, seed=0)
     cfg = tloop.DistillConfig(
         max_itr=4, start_fusion_step=1, n_aug_cameras=2, plms_steps=4,
         num_steps=8, upsample_steps=8, max_ray_batch=256,
-        ngp=NGPConfig(**NGP_KW), fused_steps=fused, **overrides)
-    out = tloop.distillation_loop(models, scene, [0, 1], cfg,
-                                  torch.Generator().manual_seed(1),
-                                  use_diffusion=use_diffusion, verbose=False)
-    return out
+        ngp=NGPConfig(**NGP_KW), **overrides)
+    with pytest.MonkeyPatch.context() as mp:
+        if unfused:
+            mp.setattr(FusedIterations, "iteration", _unfused_iteration)
+        return tloop.distillation_loop(models, scene, [0, 1], cfg,
+                                       torch.Generator().manual_seed(1),
+                                       use_diffusion=use_diffusion,
+                                       verbose=False)
 
 
 @pytest.mark.parametrize("case", sorted(LOOP_CASES))
@@ -111,11 +142,9 @@ def test_fused_loop_equals_unfused_loop(monkeypatch, case):
     bit."""
     monkeypatch.setattr(tloop, "OCC_GRID_SIZE", 32)
     use_diffusion, overrides = LOOP_CASES[case]
-    ref = _run_loop(False, use_diffusion, **overrides)
-    fus = _run_loop(True, use_diffusion, **overrides)
-    assert ref["fused"] is None
-    assert fus["fused"] == {"graphs": False, "warmups": 0, "captures": [],
-                            "replays": 0}
+    ref = _run_loop(True, use_diffusion, **overrides)
+    fus = _run_loop(False, use_diffusion, **overrides)
+    assert ref["fused"] == fus["fused"] == UNCAPTURED
     assert len(fus["losses"]) == 4
     assert fus["losses"] == ref["losses"]
     assert fus["fusion_losses"] == ref["fusion_losses"]
@@ -514,12 +543,14 @@ def _stub_port_loop(monkeypatch, cfg, scene, save_dir):
 
     def make_steps(field, cfg_, optimizer, render_hw, image_size,
                    lpips_fn=None, models=None):
-        def input_step(vc, cam, rgb, mask, generator, bitfield=None):
+        def input_step(vc, cam, rgb, mask, generator, draws=None,
+                       bitfield=None):
             calls.append(len(calls))
             return torch.tensor(float(len(calls)))
 
-        return types.SimpleNamespace(input_step=input_step,
-                                     make_nff=lambda bitfield: None)
+        return types.SimpleNamespace(
+            input_step=input_step, make_nff=lambda bitfield: None, cfg=cfg_,
+            models=models, scene_axis=(), _unbatch=lambda x: x[0])
 
     def render(field, cam, hw, vcfg, perturb, generator=None, **kw):
         return torch.zeros(hw, hw, 3), torch.zeros(hw, hw, 1)

@@ -261,13 +261,15 @@ def _port_schedule(monkeypatch, cfg, scene):
 
     def make_steps(field, cfg_, optimizer, render_hw, image_size,
                    lpips_fn=None, models=None):
-        def input_step(vc, cam, rgb, mask, generator, bitfield=None):
+        def input_step(vc, cam, rgb, mask, generator, draws=None,
+                       bitfield=None):
             assert (bitfield is not None) == cfg.use_occupancy
             events.append(("input", vc.march_steps))
             return torch.zeros(())
 
-        return types.SimpleNamespace(input_step=input_step,
-                                     make_nff=lambda bitfield: None)
+        return types.SimpleNamespace(
+            input_step=input_step, make_nff=lambda bitfield: None, cfg=cfg_,
+            models=models, scene_axis=(), _unbatch=lambda x: x[0])
 
     def render(field, cam, hw, vcfg, perturb, generator=None, **kw):
         events.append(("eval", vcfg.march_steps))

@@ -202,7 +202,8 @@ def test_fusion_steps_against_the_reference(fused, monkeypatch):
     loop's draws give iteration 1 no sampler step and iteration 2 four,
     ten evaluations): every loss,
     the sampler's output and the field's end state against the
-    reference's."""
+    reference's, with ``fused_steps`` False (the programs uncaptured on
+    any device) and True."""
     port, reference = _pair()
     scene, pscene, idx = _scene()
     cfg = DistillConfig(**TINY_DISTILL, ngp=NGPConfig(**TINY_NGP),
