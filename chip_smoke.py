@@ -2,7 +2,7 @@
 """Smoke check of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--kernels-only | --k1-only | --train-only |
-                           --k4-only] [--csrc DIR]
+                           --k4-only | --k5-only] [--csrc DIR]
 
 f32 matmuls and convolutions run in full f32 throughout (``set_tf32(False)``
 first), except in the TF32 train profile of step 7.
@@ -14,9 +14,11 @@ first), except in the TF32 train profile of step 7.
    per kernel and their SASS opcode counts (HMMA, HGMMA, RED, ATOM, LDG);
    both of K2's instances (f32 and bf16) must issue HMMA, and the bf16
    instance's wgmma body HGMMA, with no spills; each of K4's instances
-   (``kernels/conv2d.py::INSTANCES``) HGMMA, with no spills.  ``--k4-only``: then K4's
-   kernel phase (below) and the batch-1 UNet evaluation's profile of step
-   6 alone.
+   (``kernels/conv2d.py::INSTANCES``) and of K5's
+   (``kernels/linear.py::INSTANCES``) HGMMA, with no spills.
+   ``--k4-only``: then K4's kernel phase (below) and the batch-1 UNet
+   evaluation's profile of step 6 alone; ``--k5-only``: K5's kernel phase
+   and the batch-1 Zero123 evaluation's profile alone.
 3. Kernel phase: the fused grid-encode kernel (K1), forward and table
    gradient, against its plain PyTorch version on the same inputs, at
    ``NGPConfig()`` width (16 levels x C2, f32) on 2,097,152 uniform
@@ -64,7 +66,15 @@ first), except in the TF32 train profile of step 7.
    3xTF32 rate: a third of the TF32 tensor cores'), the plain version's
    time and, as its yardstick, the same call with ``cudnn.benchmark`` on,
    each call reading a cold copy of the weights, and one sum over that
-   copy (the card's own read rate).  Times are device times by
+   copy (the card's own read rate).  The linears' GEMM (K5) at Zero123's
+   12 transformer shapes (tokens by output by input features), each with
+   a cold copy of the weights: within 1e-5 of float64, two launches
+   bit-equal, its time and plan, its bound (bytes against 2 T N K
+   operations at the 3xTF32 rate, and at the f32 rate), the weights' read
+   rate and cuBLAS's f32 time; then one batch-1 Zero123 evaluation: 96 K5
+   launches, its device ms by kernel class, the "matmul" class by kernel
+   name, and its output against the same evaluation on cuBLAS.  Times are
+   device times by
    ``torch.profiler``, with CUDA-event times beside them; each kernel's
    bound is computed from the bytes and operations of its inputs.  Then
    the NGP-only demo's input step at full width under
@@ -195,7 +205,7 @@ first), except in the TF32 train profile of step 7.
    step, with the launch counts reset before each row and read after it
    (K2 three times a UNet evaluation).  The Perceiver resampler at the
    JAX package's default width, card against CPU.
-9. Prints the kernels' JSON line (K2's bf16 instance, K4, K1's
+9. Prints the kernels' JSON line (K2's bf16 instance, K4, K5, K1's
    scene-batched launches and K1's mesh launches entries of their own;
    K3's launches are the micro's), then ``{"ok": true, "device": ...}``
    as the last line.
@@ -1112,6 +1122,151 @@ def conv2d_phase():
                    <= K4_TOL + t["plain_max_abs_err_f64"])}
     assert not bad, f"K4 disagrees with its plain version: {bad}"
     return err_max, times
+
+
+# K5 at Zero-1-to-3's batch-1 transformer linears: (tokens, output
+# features, input features) of the self-attention's projections, the GEGLU
+# projection and the feed-forward's output at each level's width, 1024
+# tokens of 320 down to the middle block's 16 of 1280
+K5_SHAPES = {f"T{t}_N{n}_K{k}": (t, n, k)
+             for t, c in ((1024, 320), (256, 640), (64, 1280), (16, 1280))
+             for n, k in ((c, c), (8 * c, c), (c, 4 * c))}
+K5_KERNEL = "linear_gemm_wgmma_kernel"
+# f32: K5 within 1e-5 of float64 (tests/test_torch_linear_gemm.py)
+K5_TOL = 1e-5
+
+
+def linear_phase():
+    """K5 against float64 and against its plain version (``F.linear``:
+    cuBLAS in f32, TF32 off, as the port ran Zero123's linears before K5)
+    at :data:`K5_SHAPES`, with a bias: the largest errors; K5's device
+    time, its plan, its bound (weight, input, bias and output bytes at the
+    memory rate against 2 T N K operations at the 3xTF32 rate, and at the
+    f32 rate), the rate its weights stream at, and cuBLAS's time as
+    ``library_ms``.  Each timed call reads a cold copy of the weights
+    (K4's ring).  Two launches must be bit-equal."""
+    import torch.nn.functional as F
+
+    from sparsefusion_tpu_torch.kernels import linear as k5
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    times = {}
+    for name, (t, n, k) in K5_SHAPES.items():
+        x = torch.randn(1, t, k, device="cuda", generator=gen)
+        w = torch.randn(n, k, device="cuda", generator=gen) / math.sqrt(k)
+        bias = torch.randn(n, device="cuda", generator=gen)
+        k5.reset_launches()
+        got = k5.linear_gemm_cuda(x, w, bias)
+        again = k5.linear_gemm_cuda(x, w, bias)
+        plain = F.linear(x, w, bias)
+        want = F.linear(x.double(), w.double(), bias.double())
+        torch.cuda.synchronize()
+        assert k5.linear_gemm_cuda.launches == 2
+        assert torch.equal(got, again), f"K5 launches differ at {name}"
+        p = k5.plan(t, n, k)
+        ring = [w] + [w.clone() for _ in range(
+            max(1, K4_WEIGHT_RING_BYTES // _nbytes(w)))]
+        turn = [0]
+
+        def cold(fn):
+            def call():
+                turn[0] = (turn[0] + 1) % len(ring)
+                return fn(x, ring[turn[0]], bias)
+            return call
+
+        nbytes, ops = _nbytes(x, w, bias, got), 2 * t * n * k
+        ms = named_ms(device_ms(cold(k5.linear_gemm_cuda), PROFILE_ITERS),
+                      K5_KERNEL)
+        library_ms = sum(device_ms(cold(F.linear), PROFILE_ITERS).values())
+        b3_ms, b3_by = _bound(nbytes, ops, TF32X3_OPS_PER_S)
+        b1_ms, b1_by = _bound(nbytes, ops)
+        times[name] = {
+            "t": t, "n": n, "k": k, "tile_tokens": p.tile_tokens,
+            "tile_rows": p.tile_rows, "splits": p.splits,
+            "clusters": p.clusters,
+            "ms": ms, "library_ms": library_ms,
+            "tflops": ops / ms * 1e-9,
+            "weight_tb_per_s": _nbytes(w) / ms * 1e-9,
+            "bound_3xtf32_ms": b3_ms, "bound_3xtf32_by": b3_by,
+            "bound_3xtf32_share": b3_ms / ms,
+            "bound_ms": b1_ms, "bound_by": b1_by, "bound_share": b1_ms / ms,
+            "max_abs_err_f64": (got.double() - want).abs().max().item(),
+            "library_max_abs_err_f64": (plain.double() - want).abs().max()
+            .item()}
+        print(f"kernel {K5_KERNEL} {name}: {json.dumps(times[name])}")
+        assert torch.isfinite(got).all()
+        del ring
+    torch.cuda.empty_cache()
+    bad = {name: tm for name, tm in times.items()
+           if not tm["max_abs_err_f64"] <= K5_TOL}
+    assert not bad, f"K5 disagrees with float64: {bad}"
+    # an evaluation's 96: in each of its 16 transformers four linears at
+    # (T, C, C) and one at each other shape; five transformers a level, one
+    # in the middle block (16 tokens)
+    total = {key: sum(tm[key] * (4 if tm["n"] == tm["k"] else 1)
+                      * (1 if tm["t"] == 16 else 5) for tm in times.values())
+             for key in ("ms", "library_ms", "bound_3xtf32_ms", "bound_ms")}
+    print("K5, Zero123's 96 linears an evaluation: " + json.dumps(total))
+    return times
+
+
+def z123_eval_profile(n_evals=PROFILE_ITERS):
+    """One batch-1 evaluation of Zero-1-to-3's UNet as the sampler makes it
+    (an 8 x 32 x 32 input, one 768-wide context token, no grad, f32):
+    device ms per evaluation by kernel class, the "matmul" class by kernel
+    name (K5's linears apart from cuBLAS's GEMMs), K4's and K5's launches
+    an evaluation, and the output against the same evaluation with K5 off
+    (cuBLAS's f32 linears)."""
+    from sparsefusion_tpu_torch.kernels import conv2d as k4
+    from sparsefusion_tpu_torch.kernels import linear as k5
+    from sparsefusion_tpu_torch.models import _lecun_
+    from sparsefusion_tpu_torch.nn.zero123 import Zero123UNet
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.device("meta"):
+        model = Zero123UNet()
+    model = model.to_empty(device="cuda").eval()
+    _lecun_(model, gen)
+    x = torch.randn(1, 8, 32, 32, device="cuda", generator=gen)
+    ts = torch.full((1,), 500.0, device="cuda")
+    ctx = torch.randn(1, 1, 768, device="cuda", generator=gen)
+
+    def run(n):
+        for _ in range(n):
+            out = model(x, ts, ctx)
+        return out
+
+    with torch.no_grad():
+        run(3)
+        k4.reset_launches()
+        k5.reset_launches()
+        got = run(1)
+        launches = {"k4": k4.conv2d_splitk_cuda.launches,
+                    "k5": k5.linear_gemm_cuda.launches}
+        per_eval, _, host_ms = profile_window(lambda: run(n_evals), n_evals)
+        before = k5.takes_kernel
+        k5.takes_kernel = lambda *a: False
+        try:
+            want = run(1)
+        finally:
+            k5.takes_kernel = before
+    by_class, matmul = {}, {}
+    for name, ms in per_eval.items():
+        cls = _kernel_class(name)
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+        if cls == "matmul":
+            key = "k5" if K5_KERNEL in name else name[:90]
+            matmul[key] = matmul.get(key, 0.0) + ms
+    rel = ((got - want).norm() / want.norm()).item()
+    stats = {"device_ms": sum(per_eval.values()), "host_ms": host_ms,
+             "launches": launches, "by_kernel_class": by_class,
+             "matmul_by_kernel": matmul, "rel_err_vs_cublas": rel}
+    print("Zero123 UNet evaluation (f32, batch 1): " + json.dumps(stats))
+    assert launches["k5"] == 96, launches
+    assert rel <= 1e-4, rel
+    del model
+    torch.cuda.empty_cache()
+    return stats
 
 
 GATHER_POINTS = (131072, 2097152)   # the JAX micro's default N, and 16x
@@ -3878,6 +4033,9 @@ def main(argv=None) -> int:
     parser.add_argument("--k4-only", action="store_true",
                         help="after the build, run K4's kernel phase and "
                              "the batch-1 UNet evaluation's profile only")
+    parser.add_argument("--k5-only", action="store_true",
+                        help="after the build, run K5's kernel phase and "
+                             "a batch-1 Zero123 evaluation's profile only")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3921,7 +4079,21 @@ def main(argv=None) -> int:
         assert sass[f]["HGMMA"] > 0, f"{f} issues no HGMMA"
         assert spills.get(f) == 0, f"{f} spills {spills.get(f)} bytes"
 
+    # K5: its instances (tile tokens and rows), likewise
+    from sparsefusion_tpu_torch.kernels.linear import INSTANCES as K5_INST
+    k5_fns = [f for f in sass if K5_KERNEL in f]
+    assert len(k5_fns) == len(K5_INST), k5_fns
+    for f in k5_fns:
+        assert sass[f]["HGMMA"] > 0, f"{f} issues no HGMMA"
+        assert spills.get(f) == 0, f"{f} spills {spills.get(f)} bytes"
+
     _mark("build")
+    if args.k5_only:
+        k5_times = linear_phase()
+        _mark("K5 kernel phase")
+        z123 = z123_eval_profile()
+        print(json.dumps({"linear_gemm": k5_times, "z123_eval": z123}))
+        return 0
     if args.k4_only:
         k4_err, k4_times = conv2d_phase()
         _mark("K4 kernel phase")
@@ -3947,6 +4119,9 @@ def main(argv=None) -> int:
     _mark("K2 kernel phase")
     k4_err, k4_times = conv2d_phase()
     _mark("K4 kernel phase")
+    k5_times = linear_phase()
+    z123_eval = z123_eval_profile()
+    _mark("K5 kernel phase")
     k3_launches, k3_micro, k3_f32, k3_err = row_gather_phase()
     _mark("K3 kernel phase")
     step_stats = input_step_profile()["reference"]
@@ -3954,6 +4129,7 @@ def main(argv=None) -> int:
     _mark("input step profile")
     if args.kernels_only:
         print(json.dumps({"kernel_times": times, "conv2d_splitk": k4_times,
+                          "linear_gemm": k5_times,
                           "scene_kernel_times": scene_times,
                           "attention": attn_times,
                           "attention_bf16": bf16_times,
@@ -4118,6 +4294,20 @@ def main(argv=None) -> int:
             "ms", "event_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")},
         "shapes": k4_times})
+    # K5: no demo of this script runs Zero123; its launches are those of
+    # the profiled evaluation
+    k5_head = k5_times["T64_N10240_K1280"]
+    kernels.append({
+        "name": "linear_gemm", "route": "cuda",
+        "source": "sparsefusion_tpu_torch/csrc/linear_gemm.cu",
+        "replaces": None, "launches": z123_eval["launches"]["k5"],
+        "launches_by_path": {"z123_eval_profile": z123_eval["launches"][
+            "k5"]},
+        "max_abs_err": max(tm["max_abs_err_f64"] for tm in k5_times.values()),
+        "ms": k5_head["ms"], "plain_ms": k5_head["library_ms"],
+        "library_ms": k5_head["library_ms"],
+        "bound_ms": k5_head["bound_3xtf32_ms"],
+        "bound_by": k5_head["bound_3xtf32_by"], "shapes": k5_times})
     st = scene_times["ngp_16xC2_f32"]
     for direction, replaces in (("fwd", "grid_gather.py:79"),
                                 ("bwd", "grid_gather.py:133")):

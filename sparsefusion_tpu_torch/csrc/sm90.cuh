@@ -1,7 +1,7 @@
 // Hopper's asynchronous machinery, shared by K2's bf16 wgmma body
-// (csrc/imagen_attention.cu) and K4 (csrc/conv2d_splitk.cu): mbarriers,
-// wgmma's shared-memory descriptors, fences and waits, and the tensor
-// maps that TMA copies read (sm_90a).
+// (csrc/imagen_attention.cu), K4 (csrc/conv2d_splitk.cu) and K5
+// (csrc/linear_gemm.cu): mbarriers, wgmma's shared-memory descriptors,
+// fences and waits, and the tensor maps that TMA copies read (sm_90a).
 #pragma once
 
 #include <cuda.h>

@@ -1,7 +1,7 @@
 // K2's TF32 tensor-core helpers (csrc/imagen_attention.cu): the
 // mma.sync.m16n8k8 TF32 product, 16-byte cp.async, and the rounding to
 // TF32 and 3xTF32 split of an f32 operand (K4, on wgmma, splits in
-// integers: conv2d_splitk.cu::split_int).
+// integers: tf32_wgmma.cuh::split_int).
 #pragma once
 
 #include <stdint.h>

@@ -179,6 +179,10 @@ def load_library() -> ctypes.CDLL:
     lib.sf_conv2d_splitk.restype = i32
     lib.sf_conv2d_splitk_max_clusters.argtypes = [i32]
     lib.sf_conv2d_splitk_max_clusters.restype = i32
+    # x, w, bias, y; tokens, output and input features; the plan (tile
+    # tokens and rows, splits, clusters); the stream
+    lib.sf_linear_gemm.argtypes = [vp] * 4 + [i32] * 7 + [vp]
+    lib.sf_linear_gemm.restype = i32
     return lib
 
 

@@ -9,7 +9,8 @@ checkpoints (``zero123/configs/sd-objaverse-finetune-c_concat-256.yaml``:
 CLIP tower is OpenAI's ``visual.*``), so that those state dicts load with
 ``load_state_dict``.  Everything is NCHW and f32; the convolutions are
 ``nn/layers.py::Conv2d``, which runs kernel K4 on a card without a
-gradient, and everything else is plain PyTorch.
+gradient, the spatial transformers' linears are :class:`Linear`, which
+runs kernel K5 there, and everything else is plain PyTorch.
 
 * :class:`Zero123UNet`: ResBlocks (GroupNorm 32, SiLU, the time embedding
   added), SpatialTransformers (GroupNorm, 1x1 ``proj_in``, LayerNorm, then
@@ -40,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sparsefusion_tpu_torch.kernels import linear as k5
 from sparsefusion_tpu_torch.nn.layers import Conv2d
 from sparsefusion_tpu_torch.utils import spans
 
@@ -117,6 +119,15 @@ class ResBlock(nn.Module):
         return self.skip_connection(x) + self.out_layers(h)
 
 
+class Linear(nn.Linear):
+    """``nn.Linear``, its parameters and their names, whose forward is
+    ``kernels/linear.py::linear``: kernel K5 on a card without a gradient
+    (at 8 rows of the input or more), ``F.linear`` elsewhere."""
+
+    def forward(self, x):
+        return k5.linear(x, self.weight, self.bias)
+
+
 def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     b, n, _ = x.shape
     return x.reshape(b, n, heads, -1).transpose(1, 2)
@@ -132,10 +143,10 @@ class CrossAttention(nn.Module):
         inner = heads * dim_head
         context_dim = context_dim or query_dim
         self.heads, self.scale = heads, dim_head ** -0.5
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim, inner, bias=False)
-        self.to_out = nn.Sequential(nn.Linear(inner, query_dim),
+        self.to_q = Linear(query_dim, inner, bias=False)
+        self.to_k = Linear(context_dim, inner, bias=False)
+        self.to_v = Linear(context_dim, inner, bias=False)
+        self.to_out = nn.Sequential(Linear(inner, query_dim),
                                     nn.Dropout(0.0))
 
     def forward(self, x, context=None):
@@ -156,7 +167,7 @@ class CrossAttention(nn.Module):
 class GEGLU(nn.Module):
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        self.proj = nn.Linear(dim_in, dim_out * 2)
+        self.proj = Linear(dim_in, dim_out * 2)
 
     def forward(self, x):
         x, gate = self.proj(x).chunk(2, dim=-1)
@@ -167,7 +178,7 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.net = nn.Sequential(GEGLU(dim, dim * mult), nn.Dropout(0.0),
-                                 nn.Linear(dim * mult, dim))
+                                 Linear(dim * mult, dim))
 
     def forward(self, x):
         return self.net(x)

@@ -573,7 +573,7 @@ def report_line(r: Recorder, units: List[Span], since: int) -> str:
     before it, less its graph launches, which wait for room in the
     device's queue, and its loss reads), those two, the device ms, each
     layer's device ms, and the UNet's evaluations, their batch and K4's
-    launches in each."""
+    and K5's launches in each."""
     ids = {u.unit for u in units}
     n = len(units)
     mine = [s for s in r.spans if s.id >= since and s.unit in ids]
@@ -597,12 +597,27 @@ def report_line(r: Recorder, units: List[Span], since: int) -> str:
                      "ms/unit")
         parts += [f"{k} {v / n:.2f}" for k, v in
                   sorted(dev.items(), key=lambda kv: -kv[1])]
-    unets = [s.counts for s in mine if s.name == "unet" and s.counts]
+    # each UNet evaluation's counts, those of the spans inside it added
+    # (Zero123's linears count to its spatial transformers' spans)
+    by_id = {s.id: s for s in mine}
+    unets = {s.id: dict(s.counts) for s in mine
+             if s.name == "unet" and s.counts}
+    for s in mine:
+        up = by_id.get(s.parent)
+        while up is not None and up.id not in unets:
+            up = by_id.get(up.parent)
+        if up is not None and s.counts:
+            for key, v in s.counts.items():
+                unets[up.id][key] = unets[up.id].get(key, 0) + v
     if unets:
-        batch = sum(c.get("unet_batch", 0) for c in unets) / len(unets)
-        k4 = sum(c.get("k4_launches", 0) for c in unets) / len(unets)
-        parts.append(f"unet {len(unets) / n:.2f}/unit at batch {batch:.3g}"
-                     + (f", {k4:.4g} K4 launches each" if k4 else ""))
+        def mean(key):
+            return sum(c.get(key, 0) for c in unets.values()) / len(unets)
+
+        k4, k5 = mean("k4_launches"), mean("k5_launches")
+        parts.append(f"unet {len(unets) / n:.2f}/unit at batch "
+                     f"{mean('unet_batch'):.3g}"
+                     + (f", {k4:.4g} K4 launches each" if k4 else "")
+                     + (f", {k5:.4g} K5 launches each" if k5 else ""))
     return "; ".join(parts)
 
 
