@@ -17,8 +17,9 @@ first), except in the TF32 train profile of step 7.
    (``kernels/conv2d.py::INSTANCES``) and of K5's
    (``kernels/linear.py::INSTANCES``) HGMMA, with no spills.
    ``--k4-only``: then K4's kernel phase (below) and the batch-1 UNet
-   evaluation's profile of step 6 alone; ``--k5-only``: K5's kernel phase
-   and the batch-1 Zero123 evaluation's profile alone.
+   evaluation's profile of step 6 alone; ``--k5-only``: K5's kernel phase,
+   its plan sweep, the batch-1 Zero123 evaluation's profile and the
+   Zero123 demo of step 5 alone.
 3. Kernel phase: the fused grid-encode kernel (K1), forward and table
    gradient, against its plain PyTorch version on the same inputs, at
    ``NGPConfig()`` width (16 levels x C2, f32) on 2,097,152 uniform
@@ -71,9 +72,12 @@ first), except in the TF32 train profile of step 7.
    a cold copy of the weights: within 1e-5 of float64, two launches
    bit-equal, its time and plan, its bound (bytes against 2 T N K
    operations at the 3xTF32 rate, and at the f32 rate), the weights' read
-   rate and cuBLAS's f32 time; then one batch-1 Zero123 evaluation: 96 K5
-   launches, its device ms by kernel class, the "matmul" class by kernel
-   name, and its output against the same evaluation on cuBLAS.  Times are
+   rate and cuBLAS's f32 time (``--k5-only`` adds the plan sweep: K5's
+   time under every plan it has an instance for at the 12 shapes, the
+   fastest and the planner's pick); then one batch-1
+   Zero123 evaluation: its device ms by kernel class, the "matmul" class
+   by kernel name, and its output against the same evaluation on cuBLAS.
+   Times are
    device times by
    ``torch.profiler``, with CUDA-event times beside them; each kernel's
    bound is computed from the bytes and operations of its inputs.  Then
@@ -131,14 +135,19 @@ first), except in the TF32 train profile of step 7.
    iterations) and with ``tpu_distill_config(occupancy_start=10,
    occupancy_update_every=8)`` (marching from iteration 10, fusion
    gradient steps on 4096 rays), each printed as in step 5 (the fusion
-   window's device ms per UNet evaluation too).  Each
+   window's device ms per UNet evaluation too); then through
+   ``cli.demo.main`` with ``--prior zero123`` (Zero-1-to-3's UNet at
+   guidance 3, 30 iterations).  Each
    demo runs with the kernels' launch counts reset just before and read
    just after (a replayed graph adds the launches it captured); K2 must
    launch three times per UNet evaluation (every
    attention layer of ``UNetConfig()`` has head dim 64, which K2 has an
    instance for; a head dim without one takes the plain version), in
    bf16 for the bf16 sampler, and K4 133 times per f32 evaluation (each
-   of its convolutions) and never for the bf16 sampler.  Then one batch-1 UNet evaluation, as the
+   of its convolutions) and never for the bf16 sampler, K5 never; in the
+   Zero123 demo K5 96 times an evaluation (its transformers' linears),
+   K4 98 times and once for the CLIP tower, K2 never.  K5's launches in
+   the kernels' line are this demo's.  Then one batch-1 UNet evaluation, as the
    sampler makes it, under ``torch.profiler`` in f32, TF32 and bf16:
    device and host ms, kernels per evaluation, by kernel class.  The
    diffusion demo over four scenes with ``--scene_batch 4`` as graphs
@@ -244,6 +253,10 @@ PROFILE_TRAIN_STEPS = 3
 # K4's launches in one evaluation of the full-width f32 UNet without a
 # gradient: each of its convolutions
 UNET_CONVS = 133
+# ... of Zero-1-to-3's (K4), and its spatial transformers' linears with
+# at least 8 rows (K5: six in each of its 16 transformers)
+Z123_CONVS = 98
+Z123_LINEARS = 96
 # NVIDIA H100 SXM data sheet: memory rate (the peaks of f32 outside the
 # tensor cores and of bf16 on them are the flops tool's)
 HBM_BYTES_PER_S = 3.35e12
@@ -1200,24 +1213,84 @@ def linear_phase():
     bad = {name: tm for name, tm in times.items()
            if not tm["max_abs_err_f64"] <= K5_TOL}
     assert not bad, f"K5 disagrees with float64: {bad}"
-    # an evaluation's 96: in each of its 16 transformers four linears at
-    # (T, C, C) and one at each other shape; five transformers a level, one
-    # in the middle block (16 tokens)
-    total = {key: sum(tm[key] * (4 if tm["n"] == tm["k"] else 1)
-                      * (1 if tm["t"] == 16 else 5) for tm in times.values())
+    total = {key: sum(tm[key] * _k5_weight(tm["t"], tm["n"], tm["k"])
+                      for tm in times.values())
              for key in ("ms", "library_ms", "bound_3xtf32_ms", "bound_ms")}
     print("K5, Zero123's 96 linears an evaluation: " + json.dumps(total))
     return times
+
+
+def _k5_weight(t, n, k):
+    """How many of an evaluation's 96 linears have the shape (T, N, K):
+    four (T, C, C) linears in each transformer, one of each other shape;
+    five transformers a level, one in the middle block (16 tokens)."""
+    return (4 if n == k else 1) * (1 if t == 16 else 5)
+
+
+def linear_plan_sweep():
+    """K5's device time under every plan it has an instance for at
+    :data:`K5_SHAPES` (the least tile that holds T; 64 or 128 rows; 1 to 8
+    splits, at most K's blocks; as many clusters as the card holds at
+    once, or as there are tiles), each call reading a cold copy
+    of the weights, each within 1e-5 of float64: per shape the table, the
+    fastest plan and ``plan``'s pick, and both summed over an
+    evaluation's 96 linears."""
+    import torch.nn.functional as F
+
+    from sparsefusion_tpu_torch.kernels import conv2d as k4
+    from sparsefusion_tpu_torch.kernels import linear as k5
+
+    clusters = k4.card_clusters(torch.cuda.current_device())
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    table, total = {}, {"best_ms": 0.0, "plan_ms": 0.0}
+    for name, (t, n, k) in K5_SHAPES.items():
+        x = torch.randn(1, t, k, device="cuda", generator=gen)
+        w = torch.randn(n, k, device="cuda", generator=gen) / math.sqrt(k)
+        bias = torch.randn(n, device="cuda", generator=gen)
+        want = F.linear(x.double(), w.double(), bias.double())
+        ring = [w] + [w.clone() for _ in range(
+            max(1, K4_WEIGHT_RING_BYTES // _nbytes(w)))]
+        turn = [0]
+        bn = next((b for b in k5.TILE_TOKENS if b >= t), k5.TILE_TOKENS[-1])
+        cands = {}
+        for rows in (r for b, r in k5.INSTANCES if b == bn):
+            for s_ in range(1, min(k5.MAX_SPLITS, -(-k // k5.K_BLOCK)) + 1):
+                p = k5.LinearPlan(bn, rows, s_, min(
+                    k5.tiles(t, n, bn, rows), clusters[s_ - 1]))
+
+                def call(p=p):
+                    turn[0] = (turn[0] + 1) % len(ring)
+                    return k5.linear_gemm_cuda(x, ring[turn[0]], bias,
+                                               run_plan=p)
+
+                err = (call().double() - want).abs().max().item()
+                assert err <= K5_TOL, (name, p, err)
+                cands[p] = named_ms(device_ms(call, PROFILE_ITERS),
+                                    K5_KERNEL)
+        del ring
+        best = min(cands, key=cands.get)
+        p = k5.plan(t, n, k, clusters)
+        row = {"best": dataclasses.astuple(best), "best_ms": cands[best],
+               "plan": dataclasses.astuple(p), "plan_ms": cands[p],
+               "plan_over_best": cands[p] / cands[best] - 1}
+        row["candidates"] = sorted(
+            [*dataclasses.astuple(p), ms] for p, ms in cands.items())
+        table[name] = row
+        for key in total:
+            total[key] += _k5_weight(t, n, k) * row[key]
+        print(f"K5 plan sweep {name}: {json.dumps(row)}")
+    torch.cuda.empty_cache()
+    print("K5 plan sweep, an evaluation's 96 linears: " + json.dumps(total))
+    return table, total
 
 
 def z123_eval_profile(n_evals=PROFILE_ITERS):
     """One batch-1 evaluation of Zero-1-to-3's UNet as the sampler makes it
     (an 8 x 32 x 32 input, one 768-wide context token, no grad, f32):
     device ms per evaluation by kernel class, the "matmul" class by kernel
-    name (K5's linears apart from cuBLAS's GEMMs), K4's and K5's launches
-    an evaluation, and the output against the same evaluation with K5 off
-    (cuBLAS's f32 linears)."""
-    from sparsefusion_tpu_torch.kernels import conv2d as k4
+    name (K5's linears apart from cuBLAS's GEMMs), and the output against
+    the same evaluation with K5 off (cuBLAS's f32 linears).  Its times
+    only: K5's launches are counted on the Zero123 demo."""
     from sparsefusion_tpu_torch.kernels import linear as k5
     from sparsefusion_tpu_torch.models import _lecun_
     from sparsefusion_tpu_torch.nn.zero123 import Zero123UNet
@@ -1238,11 +1311,7 @@ def z123_eval_profile(n_evals=PROFILE_ITERS):
 
     with torch.no_grad():
         run(3)
-        k4.reset_launches()
-        k5.reset_launches()
         got = run(1)
-        launches = {"k4": k4.conv2d_splitk_cuda.launches,
-                    "k5": k5.linear_gemm_cuda.launches}
         per_eval, _, host_ms = profile_window(lambda: run(n_evals), n_evals)
         before = k5.takes_kernel
         k5.takes_kernel = lambda *a: False
@@ -1259,10 +1328,10 @@ def z123_eval_profile(n_evals=PROFILE_ITERS):
             matmul[key] = matmul.get(key, 0.0) + ms
     rel = ((got - want).norm() / want.norm()).item()
     stats = {"device_ms": sum(per_eval.values()), "host_ms": host_ms,
-             "launches": launches, "by_kernel_class": by_class,
+             "by_kernel_class": by_class,
              "matmul_by_kernel": matmul, "rel_err_vs_cublas": rel}
     print("Zero123 UNet evaluation (f32, batch 1): " + json.dumps(stats))
-    assert launches["k5"] == 96, launches
+    assert matmul.get("k5", 0.0) > 0, matmul
     assert rel <= 1e-4, rel
     del model
     torch.cuda.empty_cache()
@@ -2094,13 +2163,13 @@ _TRIOS = {}
 
 def _shared_trio(args, device):
     """``cli/demo.py::build_trio``, built once for all the smoke's
-    diffusion demos: without checkpoints every demo's weights are seed
-    0's, so they share one bundle (each run reads its UNet evaluations as
-    a difference)."""
+    diffusion demos of one prior: without checkpoints every demo's
+    weights are seed 0's, so they share one bundle (each run reads its
+    UNet evaluations as a difference)."""
     from sparsefusion_tpu_torch.cli import demo
 
-    key = (args.eft_ckpt, args.vae_ckpt, args.vldm_ckpt, args.resnet18,
-           str(device))
+    key = (args.prior, args.eft_ckpt, args.vae_ckpt, args.vldm_ckpt,
+           args.resnet18, str(device))
     if key not in _TRIOS:
         t0 = time.perf_counter()
         _TRIOS[key] = _BUILD_TRIO(args, device)
@@ -2153,15 +2222,18 @@ def _diffusion_windows(max_itr):
 
 def diffusion_main_path(variant="f32", max_itr=40, lpips_spec=None):
     """The full-width diffusion demo, ``max_itr`` iterations, fusion from
-    iteration 20: through ``cli/demo.py::main`` (``variant`` "f32", and
+    iteration 20: through ``cli/demo.py::main`` (``variant`` "f32",
     "lpips" with ``--lpips_weights lpips_spec``: the perceptual term and
-    the eval's column), or through ``distillation_loop`` with the bf16
-    sampler ("bf16_sampler") or the TPU preset ("tpu": occupancy from
-    iteration 10, single-pass marching, 4096-ray input and fusion
-    gradient steps), each iteration as CUDA graphs."""
+    the eval's column, and "z123" with ``--prior zero123``: Zero-1-to-3's
+    UNet at guidance 3 in the fusion step), or through
+    ``distillation_loop`` with the bf16 sampler ("bf16_sampler") or the
+    TPU preset ("tpu": occupancy from iteration 10, single-pass marching,
+    4096-ray input and fusion gradient steps), each iteration as CUDA
+    graphs.  The kernels' launches are counted from zero over the run."""
     from sparsefusion_tpu_torch.cli.demo import main as demo_main
 
     sampler_bf16 = variant == "bf16_sampler"
+    z123 = variant == "z123"
     windows = _diffusion_windows(max_itr)
     with tempfile.TemporaryDirectory(prefix="sf_chip_smoke_") as exp_dir, \
             _PhaseB() as phase_b, _LoopProbe(windows) as probe:
@@ -2174,6 +2246,8 @@ def diffusion_main_path(variant="f32", max_itr=40, lpips_spec=None):
             results = demo_main(argv)
         elif variant == "lpips":
             results = demo_main(argv + ["--lpips_weights", lpips_spec])
+        elif z123:
+            results = demo_main(argv + ["--prior", "zero123"])
         else:
             results = _loop_demo(argv, variant)
         torch.cuda.synchronize()
@@ -2212,7 +2286,8 @@ def diffusion_main_path(variant="f32", max_itr=40, lpips_spec=None):
     label = "diffusion main path" + {"f32": "", "bf16_sampler":
                                      " (bf16 sampler)",
                                      "tpu": " (TPU preset)",
-                                     "lpips": " (LPIPS)"}[variant]
+                                     "lpips": " (LPIPS)",
+                                     "z123": " (Zero123)"}[variant]
     print(f"{label}: " + json.dumps(stats))
     print(f"{label}: launches {json.dumps(launches)}; "
           f"files {json.dumps(written)}")
@@ -2225,15 +2300,26 @@ def diffusion_main_path(variant="f32", max_itr=40, lpips_spec=None):
     assert np.isfinite(r["renders"]).all()
     assert launches["grid_encode_fwd"] > 0 and launches["grid_encode_bwd"] > 0
     assert r["unet_evals"] > 0
-    # three attention layers a forward, all at a kernel head dim (64);
-    # with graphs, both counts add each replay's captured launches
-    assert launches["imagen_attention"] == 3 * r["unet_evals"], launches
-    assert launches["imagen_attention_bf16"] == (
-        launches["imagen_attention"] if sampler_bf16 else 0), launches
-    # K4 for each of the f32 UNet's no-grad convolutions; the bf16
-    # sampler's stay on cuDNN
-    assert launches["conv2d_splitk"] == (
-        0 if sampler_bf16 else UNET_CONVS * r["unet_evals"]), launches
+    # with graphs, every count adds each replay's captured launches
+    if z123:
+        # Zero123's UNet: K4 for each of its convolutions, and once a
+        # scene for the CLIP tower's patch convolution; K5 for each of its
+        # transformers' linears; no K2
+        assert launches["conv2d_splitk"] == \
+            Z123_CONVS * r["unet_evals"] + 1, launches
+        assert launches["linear_gemm"] == \
+            Z123_LINEARS * r["unet_evals"], launches
+        assert launches["imagen_attention"] == 0, launches
+    else:
+        # three attention layers a forward, all at a kernel head dim (64)
+        assert launches["imagen_attention"] == 3 * r["unet_evals"], launches
+        assert launches["imagen_attention_bf16"] == (
+            launches["imagen_attention"] if sampler_bf16 else 0), launches
+        # K4 for each of the f32 UNet's no-grad convolutions; the bf16
+        # sampler's stay on cuDNN; the VLDM's linears stay off K5
+        assert launches["conv2d_splitk"] == (
+            0 if sampler_bf16 else UNET_CONVS * r["unet_evals"]), launches
+        assert launches["linear_gemm"] == 0, launches
     graphs = loop_stats["graphs"]
     assert graphs["captures"] > 0 and graphs["replays"] > 0, graphs
     if variant == "tpu":
@@ -2901,11 +2987,13 @@ def small_train_step_check(compute_dtype="float32"):
 
 def _reset_counts():
     from sparsefusion_tpu_torch.kernels import attention, conv2d, grid_encode
+    from sparsefusion_tpu_torch.kernels import linear
 
     torch.cuda.synchronize()
     grid_encode.reset_launches()
     attention.reset_launches()
     conv2d.reset_launches()
+    linear.reset_launches()
 
 
 def _read_counts():
@@ -2915,8 +3003,9 @@ def _read_counts():
     ``grid_encode_fwd_bf16`` K1 forward's launches on a bf16 table;
     ``grid_encode_{fwd,bwd}_scenes`` the scenes K1's launches encoded (a
     scene-batched launch counts once in the launches and S times here);
-    ``conv2d_splitk`` K4's."""
+    ``conv2d_splitk`` K4's, ``linear_gemm`` K5's."""
     from sparsefusion_tpu_torch.kernels import attention, conv2d, grid_encode
+    from sparsefusion_tpu_torch.kernels import linear
 
     torch.cuda.synchronize()
     return {"grid_encode_fwd": grid_encode.grid_encode_cuda.launches,
@@ -2931,7 +3020,8 @@ def _read_counts():
                 attention.imagen_attention_cuda.launches_bf16,
             "imagen_attention_bf16_wgmma":
                 attention.imagen_attention_cuda.launches_bf16_wgmma,
-            "conv2d_splitk": conv2d.conv2d_splitk_cuda.launches}
+            "conv2d_splitk": conv2d.conv2d_splitk_cuda.launches,
+            "linear_gemm": linear.linear_gemm_cuda.launches}
 
 
 # the captured step against the eager one on the card: the first step's
@@ -4034,8 +4124,9 @@ def main(argv=None) -> int:
                         help="after the build, run K4's kernel phase and "
                              "the batch-1 UNet evaluation's profile only")
     parser.add_argument("--k5-only", action="store_true",
-                        help="after the build, run K5's kernel phase and "
-                             "a batch-1 Zero123 evaluation's profile only")
+                        help="after the build, run K5's kernel phase, its "
+                             "plan sweep, a batch-1 Zero123 evaluation's "
+                             "profile and the Zero123 demo only")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4090,9 +4181,13 @@ def main(argv=None) -> int:
     _mark("build")
     if args.k5_only:
         k5_times = linear_phase()
+        _, k5_sweep = linear_plan_sweep()
         _mark("K5 kernel phase")
         z123 = z123_eval_profile()
-        print(json.dumps({"linear_gemm": k5_times, "z123_eval": z123}))
+        z123_launches, _ = diffusion_main_path("z123", max_itr=30)
+        _mark("Zero123 demo")
+        print(json.dumps({"linear_gemm": k5_times, "plan_sweep": k5_sweep,
+                          "z123_eval": z123, "z123_demo": z123_launches}))
         return 0
     if args.k4_only:
         k4_err, k4_times = conv2d_phase()
@@ -4170,6 +4265,8 @@ def main(argv=None) -> int:
     bf16_launches, bf16_stats = diffusion_main_path("bf16_sampler",
                                                     max_itr=30)
     tpu_launches, _ = diffusion_main_path("tpu")
+    # 30 iterations, as the bf16 sampler's run
+    z123_launches, _ = diffusion_main_path("z123", max_itr=30)
     _mark("diffusion demos")
     batch_launches["diffusion"], batch_k1["diffusion"], _ = \
         batched_main_path("diffusion", diffusion_stats)
@@ -4223,6 +4320,7 @@ def main(argv=None) -> int:
              "diffusion_demo_bf16_sampler": bf16_launches,
              "tpu_preset_ngp_demo": tpu_ngp_launches,
              "tpu_preset_diffusion_demo": tpu_launches,
+             "z123_demo": z123_launches,
              **{f"parity_sweep_{kind}": {
                  k: sum(c[k] for c in out["launches"])
                  for k in out["launches"][0]}
@@ -4294,15 +4392,16 @@ def main(argv=None) -> int:
             "ms", "event_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")},
         "shapes": k4_times})
-    # K5: no demo of this script runs Zero123; its launches are those of
-    # the profiled evaluation
+    # K5: its launches are the Zero123 demo's; the profiled evaluation
+    # gives its share of an evaluation's time
+    k5_paths = by_path("linear_gemm")
     k5_head = k5_times["T64_N10240_K1280"]
     kernels.append({
         "name": "linear_gemm", "route": "cuda",
         "source": "sparsefusion_tpu_torch/csrc/linear_gemm.cu",
-        "replaces": None, "launches": z123_eval["launches"]["k5"],
-        "launches_by_path": {"z123_eval_profile": z123_eval["launches"][
-            "k5"]},
+        "replaces": None, "launches": sum(k5_paths.values()),
+        "launches_by_path": k5_paths,
+        "ms_per_z123_eval": z123_eval["matmul_by_kernel"]["k5"],
         "max_abs_err": max(tm["max_abs_err_f64"] for tm in k5_times.values()),
         "ms": k5_head["ms"], "plain_ms": k5_head["library_ms"],
         "library_ms": k5_head["library_ms"],

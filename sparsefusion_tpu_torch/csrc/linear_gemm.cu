@@ -25,7 +25,7 @@
 // * CTA.  384 threads: two consumer warpgroups and one producer warpgroup,
 //   over a ring of stages in shared memory (up to 16; one CTA an SM).  An
 //   output tile is 64 RG features by BN tokens (BN = 8, 16, 32 or 64, RG
-//   = 1 or 2 by the plan).  The producer's first warp copies each 32-wide
+//   = 1, or 2 at BN = 64, by the plan).  The producer's first warp copies each 32-wide
 //   K block's weight tile and token tile by TMA (2-D tensor maps over
 //   [N, K] and [T, K], 128-byte swizzle, zeros past the edges; one
 //   mbarrier counts both tiles' bytes), as far ahead as the ring has room.
@@ -494,7 +494,7 @@ int launch(const float* x, const float* w, const float* bias, float* y,
 // x (t, k), w (n, k), bias (n) or null, y (t, n); all f32 and contiguous,
 // x and w 16-byte aligned (the wrapper sees to it), k % 4 == 0 (TMA's
 // 16-byte rows).  bn (the tokens of a tile: 8, 16, 32 or 64), rows (its
-// output features: 64 or 128), splits (at most K's 32-wide blocks) and
+// output features: 64, or 128 at 64 tokens), splits (at most K's 32-wide blocks) and
 // clusters (at most the output tiles; all of them on the card at once)
 // are kernels/linear.py::plan's.  Returns the CUDA error of the launch,
 // cudaErrorInvalidValue for a shape or plan outside what the kernel
@@ -525,14 +525,7 @@ extern "C" int sf_linear_gemm(const void* x, const void* w, const void* bias,
             default: return (int)cudaErrorInvalidValue;
         }
     }
-    if (rows == 2 * kRows) {
-        switch (bn) {
-            case 8: return launch<8, 2>(xf, wf, bf, yf, s, splits, c, st);
-            case 16: return launch<16, 2>(xf, wf, bf, yf, s, splits, c, st);
-            case 32: return launch<32, 2>(xf, wf, bf, yf, s, splits, c, st);
-            case 64: return launch<64, 2>(xf, wf, bf, yf, s, splits, c, st);
-            default: return (int)cudaErrorInvalidValue;
-        }
-    }
+    if (rows == 2 * kRows && bn == 64)
+        return launch<64, 2>(xf, wf, bf, yf, s, splits, c, st);
     return (int)cudaErrorInvalidValue;
 }

@@ -16,9 +16,9 @@ turn.  The plain version is ``torch.nn.functional.linear``.
 :func:`plan` picks the tile's tokens and features, the number of K splits
 and of clusters from (T, N, K) and how many clusters of each size the card
 runs at once (``kernels/conv2d.py::card_clusters``: K4 and K5 both hold
-one CTA an SM), by a cost model fitted on an H100 (:func:`plan_cost`); the
-C entry runs that plan or refuses it.  :func:`linear_gemm_cuda` checks its
-tensors, allocates the output, launches on the current stream, counts its
+one CTA an SM) by K4's rule, and K5 has K4's instances; the C entry runs
+that plan or refuses it.  :func:`linear_gemm_cuda` checks its tensors,
+allocates the output, launches on the current stream, counts its
 launches in ``linear_gemm_cuda.launches`` and adds 1 to the open span's
 counter ``k5_launches``.  :func:`linear` is what ``nn/zero123.py::Linear``
 calls: the kernel where :func:`takes_kernel` holds, else the plain
@@ -37,14 +37,13 @@ import torch.nn.functional as F
 from sparsefusion_tpu_torch.kernels import conv2d
 from sparsefusion_tpu_torch.utils import spans
 
-# the kernel's instances: tokens of a tile (wgmma's N), its output
-# features (64: one consumer warpgroup's rows; 128: both's), the K block,
-# the most splits (the portable cluster size)
-TILE_TOKENS = (8, 16, 32, 64)
-TILE_ROWS = (64, 128)
-INSTANCES = tuple((bn, rows) for rows in TILE_ROWS for bn in TILE_TOKENS)
-K_BLOCK = 32
-MAX_SPLITS = 8
+# the kernel's instances, K4's: tokens of a tile (wgmma's N), its output
+# features (64: one consumer warpgroup's rows; 128 at 64 tokens: both's),
+# the K block, the most splits (the portable cluster size)
+TILE_TOKENS = conv2d.TILE_PIXELS
+INSTANCES = conv2d.INSTANCES
+K_BLOCK = conv2d.K_BLOCK
+MAX_SPLITS = conv2d.MAX_SPLITS
 # the fewest rows of x the kernel takes: wgmma's narrowest N
 MIN_TOKENS = 8
 
@@ -73,54 +72,16 @@ def tiles(t: int, n: int, tile_tokens: int, tile_rows: int) -> int:
     return _cdiv(n, tile_rows) * _cdiv(t, tile_tokens)
 
 
-# the plan's cost model, in SM clocks, fitted to K5's device times under
-# every candidate plan at Zero123's 12 shapes on an H100 (PERF.md, section
-# 6): a launch; a tile's reduction and stores, with one split and with
-# more; a consumer warpgroup's fixed clocks a 32-wide K block (its waits,
-# its weight fragments, the products' drain) and its three products over
-# 64 features by 64 tokens; the weight bytes the card streams a clock
-LAUNCH_CLK = 6300.0
-TILE_CLK = 3400.0
-TILE_SPLIT_CLK = 4500.0
-BLOCK_CLK = 880.0
-MMA_CLK = 380.0
-HBM_BYTES_PER_CLK = 1970.0
-
-
-def plan_cost(t: int, n: int, k: int, p: LinearPlan) -> float:
-    """The cost model's clocks for ``p``: a launch, then each cluster's
-    rounds of tiles, each a reduction plus the split's blocks; a block
-    costs the larger of a consumer warpgroup's clocks (halved where the
-    two take the blocks in turn) and the CTA's share of the card's weight
-    stream."""
-    rounds = _cdiv(tiles(t, n, p.tile_tokens, p.tile_rows), p.clusters)
-    blocks = _cdiv(_cdiv(k, K_BLOCK), p.splits)
-    consumer = BLOCK_CLK + MMA_CLK * p.tile_rows / 64 * p.tile_tokens / 64
-    if p.tile_rows == 64:
-        consumer /= 2
-    stream = p.tile_rows * K_BLOCK * 4 * p.ctas / HBM_BYTES_PER_CLK
-    tile = TILE_CLK if p.splits == 1 else TILE_SPLIT_CLK
-    return LAUNCH_CLK + rounds * (tile + blocks * max(consumer, stream))
-
-
 def plan(t: int, n: int, k: int, clusters=conv2d.H100_CLUSTERS) -> LinearPlan:
     """The plan for a GEMM of T tokens, N output features and a K-long
     reduction, on a card that runs ``clusters[S - 1]`` clusters of S CTAs
-    at once.  The tile's tokens: the least of :data:`TILE_TOKENS` that
-    holds T, else 64.  Its features (64 or 128) and the splits (at most
-    :data:`MAX_SPLITS` and at most K's blocks): those of least
-    :func:`plan_cost`, with as many clusters as the card holds at once, or
-    as there are tiles; the fewest splits on a tie."""
-    bn = next((bn for bn in TILE_TOKENS if bn >= t), TILE_TOKENS[-1])
-    best = None
-    for rows in TILE_ROWS:
-        for s in range(1, min(MAX_SPLITS, _cdiv(k, K_BLOCK)) + 1):
-            p = LinearPlan(bn, rows, s,
-                           min(tiles(t, n, bn, rows), clusters[s - 1]))
-            cost = plan_cost(t, n, k, p)
-            if best is None or cost < best[0]:
-                best = (cost, p)
-    return best[1]
+    at once: K4's (``kernels/conv2d.py::plan``, the tokens in place of its
+    pixels), with as many clusters as the card holds at once of that size,
+    or as there are tiles."""
+    p = conv2d.plan(t, n, k, clusters)
+    rows = p.tile_channels
+    return LinearPlan(p.tile_pixels, rows, p.splits, min(
+        tiles(t, n, p.tile_pixels, rows), clusters[p.splits - 1]))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

@@ -40,7 +40,7 @@ def launch_counters(models=None) -> List[Tuple[object, str]]:
     """The Python counts that a replayed graph must advance: the kernels'
     launch counters and, with ``models``, its UNet evaluations."""
     from sparsefusion_tpu_torch.kernels import attention, conv2d, grid_encode
-    from sparsefusion_tpu_torch.kernels import row_gather
+    from sparsefusion_tpu_torch.kernels import linear, row_gather
 
     counters = [(grid_encode.grid_encode_cuda, a)
                 for a in ("launches", "scenes", "launches_bf16")]
@@ -50,6 +50,7 @@ def launch_counters(models=None) -> List[Tuple[object, str]]:
         "launches", "launches_bf16", "launches_bf16_wgmma")]
     counters.append((row_gather.row_gather_cuda, "launches"))
     counters.append((conv2d.conv2d_splitk_cuda, "launches"))
+    counters.append((linear.linear_gemm_cuda, "launches"))
     if models is not None:
         counters.append((models, "unet_evals"))
     return counters
